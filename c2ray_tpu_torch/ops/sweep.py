@@ -1,5 +1,6 @@
 """Causal wavefront ray sweep, PyTorch port of c2ray_tpu/ops/sweep.py
-(full-cube, full-radius path).
+(the full-cube sweep, full-radius or radius-capped, and the windowed
+many-source sweep).
 
 The reference's per-source short-characteristics ray trace
 (evolve_source.F90 + evolve_point.F90:83-299 + column_density.f90:29-293)
@@ -13,11 +14,12 @@ causal: the rates come afterwards in one vectorized pass (_rate_pass).
 
 This module holds the plain torch versions.  The march here reads its
 face planes straight from the grid-frame neutral-density cube at rows
-(s_ax +- d) mod N - the same reads as the grid-frame Pallas march
-(sweep_pallas.compute_columns_pallas_grid) and the CUDA kernel
-(ops/sweep_cuda.py) - and where the JAX code builds mirrored or
-transposed copies of a plane to apply the wedge fixups, it indexes the
-one row or column it needs.
+(s_ax +- d) mod N (march_columns) or from per-source centred windows at
+rows c +- d (march_windows) - the same reads as the Pallas marches
+(sweep_pallas.compute_columns_pallas_grid / compute_columns_pallas) and
+the CUDA kernel (ops/sweep_cuda.py) - and where the JAX code builds
+mirrored or transposed copies of a plane to apply the wedge fixups, it
+indexes the one row or column it needs.
 
 Units (float32-safe): photon rates in S_star photons/s, geometry in cell
 units; rate_scale = S_star/dr^3 converts to physical per-atom rates.
@@ -236,6 +238,24 @@ def _commit_shell(out: torch.Tensor, planes: torch.Tensor, d: int,
         out[idx] = torch.where(own[f // 2], planes[:, f], out[idx])
 
 
+def _march(cfg: RunConfig, face_planes, cdo0: torch.Tensor, n: int,
+           sc: SweepScalars, max_shell: int) -> torch.Tensor:
+    """Shells 1..min(max_shell, N/2) of the march from the per-shell face
+    planes face_planes(d) -> (B, 6, N, N); cells beyond the last shell
+    stay zero."""
+    c = n // 2
+    b = cdo0.shape[0]
+    prev = torch.zeros((b, 6, n, n), dtype=cdo0.dtype, device=cdo0.device)
+    prev[:, :, c, c] = cdo0[:, None]
+    out = torch.zeros((b, n, n, n), dtype=cdo0.dtype, device=cdo0.device)
+    for d in range(1, min(max_shell, c) + 1):
+        prev = _wavefront_plane_update(prev, face_planes(d), sc.lls_coldens,
+                                       d, cfg, sc.dr, n)
+        _commit_shell(out, prev, d, n)
+    out[:, c, c, c] = cdo0
+    return out
+
+
 def march_columns(cfg: RunConfig, ndhi: torch.Tensor,
                   srcpos_b: torch.Tensor, sc: SweepScalars,
                   max_shell: int) -> torch.Tensor:
@@ -248,11 +268,9 @@ def march_columns(cfg: RunConfig, ndhi: torch.Tensor,
     n = ndhi.shape[0]
     c = n // 2
     dev = ndhi.device
-    b = srcpos_b.shape[0]
     pos = srcpos_b.to(device=dev, dtype=torch.int64)
     ar = torch.arange(n, device=dev)
     g = [(ar[None, :] + pos[:, ax, None] - c) % n for ax in range(3)]
-    lcol = sc.lls_coldens
 
     def face_planes(d):
         planes = []
@@ -267,15 +285,27 @@ def march_columns(cfg: RunConfig, ndhi: torch.Tensor,
         return torch.stack(planes, dim=1)
 
     cdo0 = ndhi[pos[:, 0], pos[:, 1], pos[:, 2]] * (0.5 * sc.dr)
-    prev = torch.zeros((b, 6, n, n), dtype=ndhi.dtype, device=dev)
-    prev[:, :, c, c] = cdo0[:, None]
-    out = torch.zeros((b, n, n, n), dtype=ndhi.dtype, device=dev)
-    for d in range(1, min(max_shell, c) + 1):
-        prev = _wavefront_plane_update(prev, face_planes(d), lcol, d, cfg,
-                                       sc.dr, n)
-        _commit_shell(out, prev, d, n)
-    out[:, c, c, c] = cdo0
-    return out
+    return _march(cfg, face_planes, cdo0, n, sc, max_shell)
+
+
+def march_windows(cfg: RunConfig, wins: torch.Tensor, sc: SweepScalars,
+                  max_shell: int) -> torch.Tensor:
+    """Column march on a batch of source-centred cubes: (B,p,p,p) ->
+    (B,p,p,p) coldensh_out (the JAX compute_columns_pallas on windows, or
+    the vmapped compute_columns_facemajor).  Face f's plane at shell d is
+    the cube's plane at row c + sign*d (mod p, which wraps only for even p
+    at d = p/2)."""
+    n = wins.shape[-1]
+    c = n // 2
+
+    def face_planes(d):
+        hi, lo = (c + d) % n, c - d
+        return torch.stack([wins[:, :, :, hi], wins[:, :, :, lo],
+                            wins[:, :, hi, :], wins[:, :, lo, :],
+                            wins[:, hi, :, :], wins[:, lo, :, :]], dim=1)
+
+    cdo0 = wins[:, c, c, c] * (0.5 * sc.dr)
+    return _march(cfg, face_planes, cdo0, n, sc, max_shell)
 
 
 def compute_columns_facemajor(cfg: RunConfig, ndhi_c: torch.Tensor,
@@ -286,9 +316,7 @@ def compute_columns_facemajor(cfg: RunConfig, ndhi_c: torch.Tensor,
     if lls_c is not None:
         raise NotImplementedError(
             "grid LLS (type 2) is not ported to c2ray_tpu_torch yet")
-    c = ndhi_c.shape[0] // 2
-    pos = torch.tensor([[c, c, c]], dtype=torch.int64, device=ndhi_c.device)
-    return march_columns(cfg, ndhi_c, pos, sc, max_shell)[0]
+    return march_windows(cfg, ndhi_c[None], sc, max_shell)[0]
 
 
 def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
@@ -298,8 +326,13 @@ def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
     of one source, all fields centred on it (evolve_point.F90:151-295):
     coldensh_in = coldensh_out - cell column, shell-volume dilution, the
     max_coldensh / R_max stops, photon-conserving rates, per-atom rates,
-    and the boundary and LLS photon-loss tallies."""
-    n = cdo.shape[0]
+    and the boundary and LLS photon-loss tallies.
+
+    The fields may carry leading batch dimensions (a batch of windows, as
+    the JAX windowed_batch vmaps this function); nflux then broadcasts
+    against them, e.g. as (B, 1, 1, 1), and the losses come back per
+    window."""
+    n = cdo.shape[-1]
     c = n // 2
     pos_max = n - 1 - c
     dtype, dev = cdo.dtype, cdo.device
@@ -348,11 +381,13 @@ def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
     q_lim = min(max_shell, c)
     bnd = ((oi == p_lim) | (oi == -q_lim) | (oj == p_lim) | (oj == -q_lim)
            | (ok == p_lim) | (ok == -q_lim))
-    loss = torch.sum(torch.where(live & bnd, phi.photo_out / vol_ph, 0.0))
+    cells = (-3, -2, -1)
+    loss = torch.sum(torch.where(live & bnd, phi.photo_out / vol_ph, 0.0),
+                     dim=cells)
 
-    lls_loss = torch.zeros((), dtype=dtype, device=dev)
+    lls_loss = torch.zeros(loss.shape, dtype=dtype, device=dev)
     if lls_cell is not None:
-        lls_loss = torch.sum(torch.where(live, lls_cell, 0.0))
+        lls_loss = torch.sum(torch.where(live, lls_cell, 0.0), dim=cells)
     return SweepResult(gamma, heat, loss, lls_loss, cdo)
 
 
@@ -372,6 +407,109 @@ def sweep_single_source(cfg: RunConfig, tables: RadTables,
     return _rate_pass(cfg, tables, cdo, ndhi_c, nflux, sc, lls_c, max_shell)
 
 
+def windowed_prepass(cfg: RunConfig, ndens: torch.Tensor,
+                     xh_av1: torch.Tensor, radius: int) -> torch.Tensor:
+    """The neutral density and its r-wide periodic pad, (N+2r)^3: the
+    window of half-width r around grid cell q is then the (2r+1)^3 block
+    of the padded field with corner q (the JAX windowed_prepass, without
+    the TPU lane margins)."""
+    ndhi = neutral_density(cfg, ndens, xh_av1)
+    n = ndhi.shape[0]
+    idx = (torch.arange(n + 2 * radius, device=ndhi.device) - radius) % n
+    return ndhi[idx][:, idx][:, :, idx]
+
+
+def check_window_positions(srcpos: np.ndarray, n: int) -> None:
+    """Window corners are the source cells themselves, so every position
+    must lie in [0, n): the gather and the scatter-add index the padded
+    field without a wrap."""
+    srcpos = np.asarray(srcpos)
+    if srcpos.size and (srcpos.min() < 0 or srcpos.max() >= n):
+        raise ValueError(f"source positions must lie in [0, {n}) for "
+                         "windowed sweeps")
+
+
+def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
+                   pos: torch.Tensor, nf: torch.Tensor, sc: SweepScalars,
+                   radius: int, acc_pad: torch.Tensor):
+    """Sweep one batch of (2r+1)^3 windows and scatter-add their rates
+    into the padded accumulator, in place (the JAX windowed_batch on its
+    block-DMA path).  Gather (K4), march (K3) and scatter-add (K5) are
+    the kernels on a CUDA device; the rate pass is plain torch, batched
+    over the windows, on the window's own (p,p,p) mesh.
+
+    pos: (B, 3) int32 grid cells in [0, n); nf: (B,) fluxes (zero-flux
+    entries pad a partial batch and add exactly zero).
+    Returns (photon_loss_sum, lls_loss_sum, per_window_loss)."""
+    from .sweep_cuda import compute_columns_windows
+    from .window_cuda import window_gather, window_scatter_add
+
+    r = int(radius)
+    p = 2 * r + 1
+    cfgw = cfg.replace(mesh=(p, p, p))
+    wins = window_gather(ndhi_pad, pos, r)
+    cdo = compute_columns_windows(cfgw, wins, sc, r)
+    res = _rate_pass(cfgw, tables, cdo, wins, nf[:, None, None, None], sc,
+                     None, r)
+    del cdo
+    window_scatter_add(acc_pad, res.phih, pos)
+    return torch.sum(res.photon_loss), torch.sum(res.lls_loss), \
+        res.photon_loss
+
+
+def _pad_batch(srcpos: torch.Tensor, nflux: torch.Tensor, b: int):
+    """Pad the source arrays with zero-flux sources at cell 0 to a whole
+    number of batches of b."""
+    s = int(srcpos.shape[0])
+    pad = -(-s // b) * b - s
+    if pad:
+        srcpos = torch.cat([srcpos, srcpos.new_zeros((pad, 3))])
+        nflux = torch.cat([nflux, nflux.new_zeros((pad,))])
+    return srcpos, nflux
+
+
+def raytrace_windowed(cfg: RunConfig, tables: RadTables,
+                      ndens: torch.Tensor, xh_av1: torch.Tensor,
+                      srcpos: torch.Tensor, nflux: torch.Tensor,
+                      sc: SweepScalars, radius: int = 8):
+    """Windowed multi-source sweep, O(r^3) per source (the JAX
+    raytrace_windowed): each source is swept inside its (2r+1)^3 window
+    of the periodically padded neutral density, in batches of
+    cfg.source_batch windows; the rates scatter-add into one padded
+    accumulator whose r-wide ring folds back mod N once per call.  The
+    window boundary is the max_shell boundary, so the escaping-photon
+    tally is the reference's subbox-face loss (evolve_point.F90:290-295).
+
+    Requires 2*radius+1 <= N.  Returns (phih, phiheat, photon_loss,
+    lls_loss, per_source_loss) as device tensors, without a host sync."""
+    from .window_cuda import fold_padded_acc, padded_acc_shape
+
+    n = cfg.mesh[0]
+    r = int(radius)
+    if 2 * r + 1 > n:
+        raise ValueError(f"window of radius {r} does not fit in {n}^3")
+    dtype, dev = ndens.dtype, ndens.device
+    ndhi_pad = windowed_prepass(cfg, ndens, xh_av1, r)
+    s = int(srcpos.shape[0])
+    b = max(1, min(cfg.source_batch, s))
+    srcpos, nflux = _pad_batch(srcpos.to(device=dev, dtype=torch.int32),
+                               nflux.to(device=dev, dtype=dtype), b)
+    acc = torch.zeros(padded_acc_shape(n, r), dtype=dtype, device=dev)
+    loss = torch.zeros((), dtype=dtype, device=dev)
+    lls_loss = torch.zeros((), dtype=dtype, device=dev)
+    per_src = []
+    for i in range(0, srcpos.shape[0], b):
+        lo, ll, per_win = windowed_batch(cfg, tables, ndhi_pad,
+                                         srcpos[i:i + b], nflux[i:i + b], sc,
+                                         r, acc)
+        loss = loss + lo
+        lls_loss = lls_loss + ll
+        per_src.append(per_win)
+    return (fold_padded_acc(acc, n, r), torch.zeros((), dtype=dtype,
+                                                     device=dev),
+            loss, lls_loss, torch.cat(per_src)[:s])
+
+
 def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
                          ndens: torch.Tensor, xh_av1: torch.Tensor,
                          srcpos: torch.Tensor, nflux: torch.Tensor,
@@ -379,13 +517,16 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
                          lls_grid: Optional[torch.Tensor] = None,
                          max_shell: Optional[int] = None):
     """Sweep every source and accumulate the global rate grid
-    (pass_all_sources, evolve.F90:444-495), full-cube branch.
+    (pass_all_sources, evolve.F90:444-495).
 
-    Sources go in batches of cfg.source_batch (capped by the same ~1 GiB
-    staging bound as the JAX twin, and by MAX_BATCH); each batch runs the
-    column march (sweep_cuda.compute_columns_grid) and the fused rate
-    deposition (sweep_cuda.consume_rates) - the hand-written kernels on a
-    CUDA device, their plain versions on the CPU.
+    With an explicit max_shell whose window fits in the grid (2r+1 <=
+    N-1) and cfg.window_sweep, the sweep is windowed (raytrace_windowed),
+    as in the JAX twin.  Otherwise it is the full-cube sweep to d_sweep
+    shells: sources go in batches of cfg.source_batch (capped by the same
+    ~1 GiB staging bound as the JAX twin, and by MAX_BATCH); each batch
+    runs the column march (sweep_cuda.compute_columns_grid) and the fused
+    rate deposition (sweep_cuda.consume_rates) - the hand-written kernels
+    on a CUDA device, their plain versions on the CPU.
 
     srcpos: (S, 3) 0-based cell positions; nflux: (S,) in S_star units.
     Returns (phih, phiheat, photon_loss, lls_loss, per_source_loss) as
@@ -403,31 +544,27 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     if d_sweep is None:
         d_sweep = cfg.max_shell if cfg.max_shell is not None else c
     d_sweep = min(d_sweep, min(c, cfg.max_subbox))
+    # windowed dispatch: per-source work O(r^3), not O(N^3) (the
+    # reference's subbox rationale, evolve_source.F90:128-212)
     if cfg.window_sweep and max_shell is not None and 2 * d_sweep + 1 <= n - 1:
-        raise NotImplementedError(
-            "windowed sweeps are not ported to c2ray_tpu_torch yet")
+        return raytrace_windowed(cfg, tables, ndens, xh_av1, srcpos, nflux,
+                                 sc, radius=d_sweep)
 
     s = int(srcpos.shape[0])
     itemsize = 4 if dtype == torch.float32 else 8
     b_mem = max(1, (1 << 30) // (n * n * n * itemsize))
     b = max(1, min(cfg.source_batch, s, b_mem, MAX_BATCH))
-    nbatch = -(-s // b)
-    pad = nbatch * b - s
-    srcpos = srcpos.to(device=dev, dtype=torch.int32)
-    nflux = nflux.to(device=dev, dtype=dtype)
-    if pad:
-        # zero-flux padding sources contribute exactly zero
-        srcpos = torch.cat([srcpos, srcpos.new_zeros((pad, 3))])
-        nflux = torch.cat([nflux, nflux.new_zeros((pad,))])
+    srcpos, nflux = _pad_batch(srcpos.to(device=dev, dtype=torch.int32),
+                               nflux.to(device=dev, dtype=dtype), b)
 
     ndhi = neutral_density(cfg, ndens, xh_av1)
     phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
     loss = torch.zeros((), dtype=dtype, device=dev)
     lls_loss = torch.zeros((), dtype=dtype, device=dev)
     per_src = []
-    for i in range(nbatch):
-        pos_b = srcpos[i * b:(i + 1) * b]
-        nf_b = nflux[i * b:(i + 1) * b]
+    for i in range(0, srcpos.shape[0], b):
+        pos_b = srcpos[i:i + b]
+        nf_b = nflux[i:i + b]
         cdo_b = compute_columns_grid(cfg, ndhi, pos_b, sc, d_sweep)
         ph, lo, ll = consume_rates(cfg, tables, cdo_b, ndhi, pos_b, nf_b,
                                    sc, d_sweep)

@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels of the sweep and their plain versions.
 
-The port's twin of c2ray_tpu/ops/sweep_pallas.py for the full-radius main
-path:
+The port's twin of c2ray_tpu/ops/sweep_pallas.py:
 
-  compute_columns_grid  (csrc/march.cu)   <- _kernel_grid, the grid-frame
-                                             column march
-  consume_rates         (csrc/consume.cu) <- _kernel_consume, the fused
-                                             rate deposition
+  compute_columns_grid     (csrc/march.cu)   <- _kernel_grid, the grid-
+                                                frame column march (full
+                                                radius or radius-capped)
+  compute_columns_windows  (csrc/march.cu)   <- _kernel, the same march
+                                                on source-centred windows
+  consume_rates            (csrc/consume.cu) <- _kernel_consume, the fused
+                                                rate deposition
 
 Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
@@ -22,23 +24,31 @@ import torch
 
 from .. import _build
 from ..config import RunConfig
-from .sweep import MAX_BATCH, SweepScalars, _rate_pass, march_columns, roll3
+from .sweep import (MAX_BATCH, SweepScalars, _rate_pass, march_columns,
+                    march_windows, roll3)
 from .tables import RadTables, use_expsum
 
-LAUNCHES = {"march": 0, "consume": 0}
+LAUNCHES = {"march": 0, "consume": 0, "window_march": 0}
+
+# the most sources one launch takes (CUDA's grid z extent)
+MAX_WINDOWS = 65535
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel -> (library, C symbol, argument types)
 _SIGNATURES = {
-    "march": ("c2r_march", [_vp, _vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp,
-                            _vp]),
-    "consume": ("c2r_consume", [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                                _f, _f, _f, _i, _f, _vp, _vp, _vp, _vp]),
+    "march": ("march", "c2r_march",
+              [_vp, _vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp]),
+    "window_march": ("march", "c2r_march_windows",
+                     [_vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp]),
+    "consume": ("consume", "c2r_consume",
+                [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
+                 _i, _f, _vp, _vp, _vp, _vp]),
 }
 
 
-def _entry(name: str):
-    lib = _build.load(name)
-    sym, argtypes = _SIGNATURES[name]
+def _entry(name: str, signatures=_SIGNATURES):
+    lib_name, sym, argtypes = signatures[name]
+    lib = _build.load(lib_name)
     fn = getattr(lib, sym)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -97,7 +107,9 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
                          max_shell: int) -> torch.Tensor:
     """(N,N,N) grid-frame neutral density + (B,3) source cells ->
     (B,N,N,N) source-centred coldensh_out, the output of the JAX
-    compute_columns_pallas_grid."""
+    compute_columns_pallas_grid; with max_shell < N/2 the march stops
+    there and the cells beyond read zero (what the JAX
+    compute_columns_pallas gives on its radius-capped patch)."""
     if ndhi.device.type == "cpu":
         return compute_columns_grid_reference(cfg, ndhi, srcpos_b, sc,
                                               max_shell)
@@ -111,22 +123,72 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
         raise ValueError(f"batch of {b} sources; the march takes "
                          f"1..{MAX_BATCH}")
     _slice_options(cfg)
-    c = n // 2
-    if max_shell < c:
-        raise NotImplementedError(
-            "radius-capped marches are not ported to the CUDA kernel")
+    nshell = _shells(max_shell, n)
     lib, fn = _entry("march")
-    out = torch.empty((b, n, n, n), dtype=torch.float32, device=ndhi.device)
+    out = _columns_out((b, n, n, n), nshell, ndhi.device)
     planes = torch.empty((2, b, 6, n, n), dtype=torch.float32,
                          device=ndhi.device)
     ndhi_zt = ndhi.permute(2, 0, 1).contiguous()     # [z][x][y]
     use_lls = int(cfg.use_lls and cfg.type_of_lls == 1)
     stream = torch.cuda.current_stream(ndhi.device).cuda_stream
     rc = fn(ndhi.data_ptr(), ndhi_zt.data_ptr(), srcpos_b.data_ptr(), b, n,
-            c, sc.dr, sc.lls_coldens, use_lls, planes.data_ptr(),
+            nshell, sc.dr, sc.lls_coldens, use_lls, planes.data_ptr(),
             out.data_ptr(), stream)
     _check_rc(lib, rc, "march")
-    LAUNCHES["march"] += c
+    LAUNCHES["march"] += nshell
+    return out
+
+
+def _shells(max_shell: int, n: int) -> int:
+    """Shells the march runs: min(max_shell, n/2), at least one."""
+    if max_shell < 1:
+        raise ValueError(f"max_shell {max_shell}: the march needs >= 1")
+    return min(max_shell, n // 2)
+
+
+def _columns_out(shape, nshell: int, dev) -> torch.Tensor:
+    """The march's output cube: cells beyond a capped radius are never
+    written and must read zero, as in the plain version."""
+    if nshell < shape[-1] // 2:
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# K3: the march on source-centred windows
+# ---------------------------------------------------------------------------
+
+def compute_columns_windows_reference(cfg: RunConfig, wins: torch.Tensor,
+                                      sc: SweepScalars,
+                                      max_shell: int) -> torch.Tensor:
+    """Plain version of compute_columns_windows (ops/sweep.march_windows)."""
+    return march_windows(cfg, wins, sc, max_shell)
+
+
+def compute_columns_windows(cfg: RunConfig, wins: torch.Tensor,
+                            sc: SweepScalars, max_shell: int) -> torch.Tensor:
+    """(B,p,p,p) source-centred neutral-density windows -> (B,p,p,p)
+    coldensh_out, marched to min(max_shell, p/2) shells (the JAX
+    compute_columns_pallas on the windowed path)."""
+    if wins.device.type == "cpu":
+        return compute_columns_windows_reference(cfg, wins, sc, max_shell)
+    b, p = wins.shape[0], wins.shape[-1]
+    _check_cuda("wins", wins, torch.float32, (b, p, p, p))
+    if not 1 <= b <= MAX_WINDOWS:
+        raise ValueError(f"batch of {b} windows; the march takes "
+                         f"1..{MAX_WINDOWS}")
+    _slice_options(cfg)
+    nshell = _shells(max_shell, p)
+    lib, fn = _entry("window_march")
+    out = _columns_out((b, p, p, p), nshell, wins.device)
+    planes = torch.empty((2, b, 6, p, p), dtype=torch.float32,
+                         device=wins.device)
+    use_lls = int(cfg.use_lls and cfg.type_of_lls == 1)
+    stream = torch.cuda.current_stream(wins.device).cuda_stream
+    rc = fn(wins.data_ptr(), b, p, nshell, sc.dr, sc.lls_coldens, use_lls,
+            planes.data_ptr(), out.data_ptr(), stream)
+    _check_rc(lib, rc, "window march")
+    LAUNCHES["window_march"] += nshell
     return out
 
 

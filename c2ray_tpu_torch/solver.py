@@ -1,6 +1,6 @@
 """evolve3D: the global convergence iteration over sources + chemistry,
-PyTorch port of c2ray_tpu/solver.py (evolve.F90:83-281), non-adaptive
-isothermal path.
+PyTorch port of c2ray_tpu/solver.py (evolve.F90:83-281), isothermal path,
+with the adaptive subbox-radius sweep of the many-source regime.
 
 One call evolves the grid over a timestep dt by iterating
 [sweep all sources -> global chemistry -> photon audit] until the grid
@@ -9,6 +9,12 @@ and the chemistry tail, then makes ONE device-to-host copy of the packed
 scalars [conv_flag, sum_xh1, photon_loss, lls_loss, (h0, h1, rec, coll)]
 and the per-source losses.  The JAX package's device-resident
 lax.while_loop has no counterpart yet.
+
+Adaptive sweeps (evolve_source.F90:128-212): every source starts at a
+Stroemgren-estimated radius on a power-of-two ladder of rungs; rungs whose
+(2r+1)^3 window fits in the grid are swept windowed, the top rung over the
+full cube, and a source whose escaping photons exceed loss_fraction of its
+flux moves one rung up for the next convergence iteration.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 from .config import RunConfig, resolve_device
 from .ops.chemistry import global_chemistry
 from .ops.photonstats import GridCounts, PhotonStatistics, grid_counts
-from .ops.sweep import raytrace_all_sources, sweep_scalars
+from .ops.sweep import (check_window_positions, raytrace_all_sources,
+                        sweep_scalars, windowed_batch, windowed_prepass)
 from .ops.tables import RadTables, use_expsum
 from .state import GridState
 
@@ -37,21 +44,20 @@ class EvolveInfo(NamedTuple):
     photon_stats: dict
     phih: Optional[torch.Tensor] = None      # last accumulated rate grid
     phiheat: Optional[torch.Tensor] = None   # None: isothermal
+    # adaptive sweeps: sources per radius rung in each convergence
+    # iteration, as swept (a port-only field; None when not adaptive)
+    rungs: Optional[list] = None
 
 
 def check_supported(cfg: RunConfig, device: torch.device) -> None:
     """Raise NotImplementedError for every option outside this slice of
     the port (each is listed as work still to port in ROADMAP.md)."""
-    c = cfg.mesh[0] // 2
     rejected = [
         (not cfg.isothermal, "non-isothermal runs"),
         (cfg.use_lls and cfg.type_of_lls != 1,
          f"LLS type {cfg.type_of_lls} (only LLS off or type 1)"),
         (cfg.sed.use_xray_sed, "X-ray sources"),
         (cfg.compressed_xfrac, "compressed_xfrac storage"),
-        (cfg.adaptive_sweep is True, "adaptive sweeps"),
-        (cfg.max_shell is not None or cfg.max_subbox < c,
-         "radius-capped sweeps (max_shell / max_subbox)"),
         (cfg.add_photon_losses, "add_photon_losses"),
         (not (cfg.mesh[0] == cfg.mesh[1] == cfg.mesh[2]), "non-cubic meshes"),
         (cfg.dtype not in ("float32", "float64"), f"dtype {cfg.dtype}"),
@@ -80,6 +86,148 @@ class Evolve3D:
         self.cfg = cfg
         self.tables = RadTables(*[t.to(self.device) if t is not None
                                   else None for t in tables])
+        # per-timestep cache of padded per-bucket device source arrays,
+        # rebuilt only when promotions change the assignment
+        self._abucket_cache = (None, {})
+
+    # ------------------------------------------------------------------
+    def _radius_ladder(self):
+        n = self.cfg.mesh[0]
+        d_max = n // 2
+        r = max(2, self.cfg.adaptive_min_shell)
+        ladder = []
+        while r < d_max:
+            ladder.append(r)
+            r *= 2
+        ladder.append(d_max)
+        return ladder
+
+    def _initial_radii(self, nflux_np, ndens_mean, dr, dt):
+        """Stroemgren-style initial rung per source (the JAX
+        _initial_radii): the isolated-bubble radius, capped at ~the mean
+        half-separation of the sources except for the top-decile fluxes,
+        snapped up to the ladder.  Leaky sources are promoted by the
+        escaping-photon test (evolve_source.F90:128-136)."""
+        cfg = self.cfg
+        n = cfg.mesh[0]
+        ladder = self._radius_ladder()
+        s_phys = np.maximum(nflux_np, 1e-300) * cfg.sed.s_star
+        r_est = (3.0 * s_phys * dt / (4.0 * np.pi * ndens_mean)) ** (1.0 / 3.0)
+        cells = 1.3 * r_est / dr
+        num_src = max(1, len(nflux_np))
+        spacing_cap = 0.75 * n / num_src ** (1.0 / 3.0)
+        capped = np.minimum(cells, max(spacing_cap,
+                                       float(cfg.adaptive_min_shell)))
+        if num_src > 1:
+            exempt = nflux_np >= np.quantile(nflux_np, 0.9)
+            cells = np.where(exempt, cells, capped)
+        else:
+            cells = capped
+        assign = np.searchsorted(np.asarray(ladder), cells)
+        return np.minimum(assign, len(ladder) - 1).astype(np.int64)
+
+    def _window_chunk_size(self, radius: int) -> int:
+        """Windows per batch at this rung: ~source_batch x 17^3 window
+        cells per batch, pow2-floored (the JAX _window_chunk_size)."""
+        sb = max(1, self.cfg.source_batch)
+        c = int(sb * (17 ** 3) / (2 * radius + 1) ** 3)
+        c = max(4, min(sb, c))
+        return 1 << (c.bit_length() - 1)
+
+    def _full_chunk_size(self) -> int:
+        """Sources per full-cube call at the top rung, bounded by its
+        staging memory cap (the JAX _full_chunk_size)."""
+        n = self.cfg.mesh[0]
+        itemsize = 4 if self.cfg.torch_dtype == torch.float32 else 8
+        b_mem = max(1, (1 << 30) // (n * n * n * itemsize))
+        c = max(1, min(self.cfg.source_batch, b_mem))
+        return 1 << (c.bit_length() - 1)
+
+    def _bucket_arrays(self, key, b, cap, idx, srcpos_np, nflux_np):
+        """Padded device source arrays of one rung (cached across
+        convergence iterations under the assignment key)."""
+        ck, store = self._abucket_cache
+        if ck != key:
+            store = {}
+            self._abucket_cache = (key, store)
+        hit = store.get((b, cap))
+        if hit is not None:
+            return hit
+        pos_p = np.zeros((cap, 3), np.int32)
+        flux_p = np.zeros(cap)
+        pos_p[:len(idx)] = srcpos_np[idx]
+        flux_p[:len(idx)] = nflux_np[idx]
+        out = (torch.as_tensor(pos_p, device=self.device),
+               torch.as_tensor(flux_p, dtype=self.cfg.torch_dtype,
+                               device=self.device))
+        store[(b, cap)] = out
+        return out
+
+    def _adaptive_sweep(self, ndens, xh_av, srcpos_np, nflux_np, sc, assign):
+        """Sweep the sources rung by rung (the JAX _adaptive_sweep without
+        its injected-raytracer branches): windowed rungs in fixed-size
+        batches through ops.sweep.windowed_batch into one padded
+        accumulator per rung, folded into the rate grid at the rung's end;
+        the full-cube rung in fixed-size chunks through
+        raytrace_all_sources.  No host sync: the per-source losses come
+        back as (indices, device tensor) pairs for the iteration's one
+        copy."""
+        from .ops.window_cuda import fold_padded_acc, padded_acc_shape
+
+        cfg = self.cfg
+        dtype, dev = cfg.torch_dtype, self.device
+        n = cfg.mesh[0]
+        phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
+        loss = torch.zeros((), dtype=dtype, device=dev)
+        lls_loss = torch.zeros((), dtype=dtype, device=dev)
+        pending = []
+        akey = assign.tobytes()
+        for b, radius in enumerate(self._radius_ladder()):
+            idx = np.where(assign == b)[0]
+            if len(idx) == 0:
+                continue
+            parts = []
+            if cfg.window_sweep and 2 * radius + 1 <= n - 1:
+                ndhi_pad = windowed_prepass(cfg, ndens, xh_av, radius)
+                chunk = self._window_chunk_size(radius)
+                pos_p, flux_p = self._bucket_arrays(
+                    akey, b, -(-len(idx) // chunk) * chunk, idx, srcpos_np,
+                    nflux_np)
+                acc = torch.zeros(padded_acc_shape(n, radius), dtype=dtype,
+                                  device=dev)
+                for i in range(0, pos_p.shape[0], chunk):
+                    lo, ll, ps = windowed_batch(
+                        cfg, self.tables, ndhi_pad, pos_p[i:i + chunk],
+                        flux_p[i:i + chunk], sc, radius, acc)
+                    loss = loss + lo
+                    lls_loss = lls_loss + ll
+                    parts.append(ps)
+                phih = phih + fold_padded_acc(acc, n, radius)
+            else:
+                chunk = self._full_chunk_size()
+                pos_p, flux_p = self._bucket_arrays(
+                    akey, b, -(-len(idx) // chunk) * chunk, idx, srcpos_np,
+                    nflux_np)
+                for i in range(0, pos_p.shape[0], chunk):
+                    ph, _, lo, ll, ps = raytrace_all_sources(
+                        cfg, self.tables, ndens, xh_av, pos_p[i:i + chunk],
+                        flux_p[i:i + chunk], sc, max_shell=radius)
+                    phih = phih + ph
+                    loss = loss + lo
+                    lls_loss = lls_loss + ll
+                    parts.append(ps)
+            pending.append((idx, torch.cat(parts)))
+        return phih, loss, lls_loss, pending
+
+    def _promote(self, per_src, nflux_np, assign):
+        """Escaping photons above loss_fraction of the source's output
+        move it one rung up for the next convergence iteration
+        (c2ray_parameters.f90:67, evolve_source.F90:128-136)."""
+        ladder = self._radius_ladder()
+        leaked = per_src > self.cfg.loss_fraction * np.maximum(nflux_np,
+                                                               1e-300)
+        return np.where(leaked & (assign < len(ladder) - 1),
+                        assign + 1, assign)
 
     def _tail(self, dt, ndens, xh1, xh_int, xh_av, phih, clump, ploss, llsl,
               psrc, with_stats: bool):
@@ -124,13 +272,16 @@ class Evolve3D:
         srcpos_np = np.asarray(srcpos, np.int64).reshape(-1, 3)
         nflux_np = np.asarray(nflux, np.float64).reshape(-1)
         num_src = int(srcpos_np.shape[0])
+        # auto: adaptive subbox radii in the many-source regime
+        # (evolve_source.F90:128-136)
         use_adaptive = (cfg.adaptive_sweep if cfg.adaptive_sweep is not None
                         else num_src >= cfg.adaptive_auto_min_sources)
+        radius_assign = None            # adaptive rung per source (per step)
+        rungs = [] if use_adaptive else None
         if use_adaptive:
-            raise NotImplementedError(
-                f"adaptive sweeps ({num_src} sources >= "
-                f"adaptive_auto_min_sources) are not ported to "
-                "c2ray_tpu_torch yet")
+            check_window_positions(srcpos_np, cfg.mesh[0])
+            # a new timestep (new catalog) invalidates the bucket arrays
+            self._abucket_cache = (None, {})
         srcpos_t = torch.as_tensor(srcpos_np, dtype=torch.int32, device=dev)
         nflux_t = torch.as_tensor(nflux_np, dtype=dtype, device=dev)
         sc = sweep_scalars(cfg, dr_proper, lls_coldens, rmax_cells)
@@ -193,8 +344,20 @@ class Evolve3D:
             prev_sum1, prev_sum0 = sum1, sum0
             niter += 1
 
-            phih, _, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
-                cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc)
+            if use_adaptive:
+                if radius_assign is None:
+                    radius_assign = self._initial_radii(
+                        nflux_np, float(torch.mean(ndens)), float(dr_proper),
+                        dt)
+                rungs.append(np.bincount(
+                    radius_assign,
+                    minlength=len(self._radius_ladder())).tolist())
+                phih, ploss_d, llsl_d, pending = self._adaptive_sweep(
+                    ndens, xh_av, srcpos_np, nflux_np, sc, radius_assign)
+                psrc_d = torch.cat([ps for _, ps in pending])
+            else:
+                phih, _, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
+                    cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc)
             xh_int, xh_av, packed = self._tail(
                 dt, ndens, state.xh1, xh_int, xh_av, phih, clump, ploss_d,
                 llsl_d, psrc_d, with_stats)
@@ -208,7 +371,16 @@ class Evolve3D:
             if with_stats:
                 last_stat4 = tuple(float(v) for v in got[4:8])
                 k = 8
-            per_src_loss = got[k:k + num_src].astype(np.float64)
+            if use_adaptive:
+                per_src_loss = np.zeros(num_src)
+                for idx, ps in pending:
+                    m = int(ps.shape[0])
+                    per_src_loss[idx] = got[k:k + m][:len(idx)]
+                    k += m
+                radius_assign = self._promote(per_src_loss, nflux_np,
+                                              radius_assign)
+            else:
+                per_src_loss = got[k:k + num_src].astype(np.float64)
 
             if with_stats:
                 apply_stat4(last_stat4)
@@ -231,5 +403,5 @@ class Evolve3D:
             niter=niter, conv_flag=conv_flag, converged=converged,
             mean_xh1=sum1 / n_cells, photon_loss=photon_loss,
             lls_loss=lls_loss, per_source_loss=per_src_loss,
-            photon_stats=last_report, phih=phih, phiheat=None)
+            photon_stats=last_report, phih=phih, phiheat=None, rungs=rungs)
         return new_state, info

@@ -1,7 +1,8 @@
 """The PyTorch port end to end on the CPU: Evolve3D.evolve3d against the
 frozen goldens and against the JAX package's Evolve3D on the same inputs
-(made with numpy from a seed), the package's import boundary, and the
-options this slice of the port rejects."""
+(made with numpy from a seed), the radius-limiting options against JAX,
+the package's import boundary, and the options this slice of the port
+rejects."""
 
 import dataclasses
 import functools
@@ -160,9 +161,57 @@ def test_evolve3d_matches_jax_f32_expsum():
                                      rel=2e-4)
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(adaptive_sweep=True),
+    dict(max_shell=3),
+    dict(max_subbox=2),
+])
+def test_radius_options_match_jax(overrides):
+    """The options that limit the sweep radius, each through Evolve3D on
+    the CPU against the JAX Evolve3D: adaptive rungs (windowed r = 2, 4
+    and the full cube at 16^3, with promotions in both steps), a capped
+    full-cube sweep from max_shell, and one from max_subbox.  Two steps,
+    f64 expsum rates, LLS type 1."""
+    n = 16
+    jcfg = jax_config(mesh=n, dtype="float64", use_lls=True, type_of_lls=1,
+                      cosmological=False, rate_eval="expsum",
+                      source_batch=2, adaptive_min_shell=2, **overrides)
+    cfg = config_from_dict(dataclasses.asdict(jcfg))
+    jtabs = jax_tables(jcfg)
+    ptabs = tables_from_numpy({k: np.asarray(v) for k, v in
+                               jtabs._asdict().items()}, "cpu")
+    rng = np.random.default_rng(21)
+    ndens = rng.uniform(1.5e-4, 2.5e-4, (n,) * 3)
+    srcpos = rng.integers(0, n, (4, 3)).astype(np.int32)
+    srcpos[0] = [0, n - 1, 5]                 # a periodic corner
+    nflux = 10.0 ** rng.uniform(3.0, 6.5, 4)  # adaptive: all rungs, promotions
+    dr = 3e22                                  # thin cells: rays reach r
+    jsolver = JaxEvolve3D(jcfg, jtabs)
+    psolver = port.Evolve3D(cfg, ptabs, device="cpu")
+    jstate = jax_initial_state(jcfg)
+    pstate = port.initial_state(cfg, device="cpu")
+    for _ in range(2):
+        jstate, ji = jsolver.evolve3d(jstate, jnp.asarray(ndens), dr, srcpos,
+                                      nflux, DT, lls_coldens=1e17)
+        pstate, pi = psolver.evolve3d(pstate, torch.from_numpy(ndens), dr,
+                                      srcpos, nflux, DT, lls_coldens=1e17)
+        assert pi.niter == ji.niter
+        assert pi.conv_flag == ji.conv_flag
+        assert pi.mean_xh1 == pytest.approx(ji.mean_xh1, rel=1e-9)
+        np.testing.assert_allclose(pi.per_source_loss, ji.per_source_loss,
+                                   rtol=1e-9, atol=1e-12 * nflux.sum())
+        np.testing.assert_allclose(pstate.xh1.numpy(), np.asarray(jstate.xh1),
+                                   rtol=1e-9, atol=0)
+    if overrides.get("adaptive_sweep"):
+        assert pi.rungs[0] != pi.rungs[-1]       # promoted
+    else:
+        assert pi.rungs is None
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, c2ray_tpu_torch, c2ray_tpu_torch.convert, "
-            "c2ray_tpu_torch.ops.sweep_cuda; "
+            "c2ray_tpu_torch.ops.sweep_cuda, "
+            "c2ray_tpu_torch.ops.window_cuda; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'c2ray_tpu' or "
             "m.startswith('c2ray_tpu.')]; "
@@ -187,9 +236,6 @@ def test_evolve3d_device_defaults_to_cuda():
     dict(use_lls=True, type_of_lls=2),
     dict(use_lls=True, type_of_lls=3),
     dict(compressed_xfrac=True),
-    dict(adaptive_sweep=True),
-    dict(max_shell=3),
-    dict(max_subbox=2),
     dict(add_photon_losses=True),
 ])
 def test_rejected_options_raise(overrides):
@@ -213,6 +259,3 @@ def test_rejected_call_arguments_raise():
                dict(iter_restart={}), dict(clocks=1)):
         with pytest.raises(NotImplementedError):
             solver.evolve3d(state, nd, 1e22, src, flux, DT, **kw)
-    many = np.zeros((cfg.adaptive_auto_min_sources, 3), np.int32)
-    with pytest.raises(NotImplementedError):
-        solver.evolve3d(state, nd, 1e22, many, np.ones(len(many)), DT)

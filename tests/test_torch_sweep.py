@@ -217,3 +217,12 @@ def test_wrappers_refuse_non_cpu_tensors_without_cuda():
         pk.consume_rates(pcfg, None, torch.empty((1, n, n, n), device="meta"),
                          ndhi, pos, torch.empty(1, device="meta"), psc,
                          n // 2)
+    from c2ray_tpu_torch.ops import window_cuda as pw
+
+    wins = torch.empty((1, 5, 5, 5), device="meta")
+    with pytest.raises(ValueError):
+        pk.compute_columns_windows(pcfg, wins, psc, 2)
+    with pytest.raises(ValueError):
+        pw.window_gather(ndhi, pos, 2)
+    with pytest.raises(ValueError):
+        pw.window_scatter_add(ndhi, wins, pos)
