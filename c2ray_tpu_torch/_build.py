@@ -4,7 +4,9 @@ Each source csrc/<name>.cu compiles with nvcc into its own shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds).  Libraries go to c2ray_tpu_torch/_build/, keyed by
 a hash of the source and the flags; sources build in parallel, one nvcc
-process each.  A failed build raises.
+process each.  A failed build raises.  A variant build adds preprocessor
+defines (-D) to one source; it is keyed by them too, and only measurement
+code asks for one.
 """
 
 from __future__ import annotations
@@ -40,56 +42,73 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _spec(spec) -> tuple:
+    """A kernel name, or (name, defines) for a variant build."""
+    return (spec, ()) if isinstance(spec, str) else (spec[0], tuple(spec[1]))
+
+
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(_flags(defines)).encode()
+    key = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build(names=KERNELS) -> dict:
-    """Compile every named kernel whose library is missing, all nvcc runs
-    started together.  Returns {name: compiler log (ptxas -v)}."""
-    todo = [nm for nm in names if not library_path(nm).exists()]
+def build(specs=KERNELS) -> dict:
+    """Compile every kernel library in specs (a name, or (name, defines))
+    whose library is missing, all nvcc runs started together.  Returns
+    {label: compiler log (ptxas -v)}."""
+    todo = [_spec(sp) for sp in specs]
+    todo = [(nm, dfs) for nm, dfs in todo
+            if not library_path(nm, dfs).exists()]
     logs = {}
     if not todo:
         return logs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for nm in todo:
-        tmp = library_path(nm).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{nm}.cu")]
-        procs[nm] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True))
+    for nm, dfs in todo:
+        label = nm + "".join(f" -D{d}" for d in dfs)
+        tmp = library_path(nm, dfs).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(dfs), "-o", str(tmp), str(SRC_DIR / f"{nm}.cu")]
+        procs[label] = (library_path(nm, dfs), tmp,
+                        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
     failed = []
-    for nm, (tmp, proc) in procs.items():
+    for label, (path, tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        logs[nm] = out
+        logs[label] = out
         if proc.returncode != 0:
-            failed.append(f"--- {nm}.cu (nvcc exit {proc.returncode}) ---\n"
+            failed.append(f"--- {label} (nvcc exit {proc.returncode}) ---\n"
                           f"{out}")
             continue
-        os.replace(tmp, library_path(nm))
+        os.replace(tmp, path)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of kernel `name` (built with `defines`), built
+    first if needed."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([key])
+        lib = ctypes.CDLL(str(library_path(*key)))
         lib.c2r_error_string.argtypes = [ctypes.c_int]
         lib.c2r_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib
 
 
-def timed_build() -> tuple:
-    """Build all kernels; returns (seconds, {name: compiler log})."""
+def timed_build(variants=()) -> tuple:
+    """Build all kernels and the given variant builds together; returns
+    (seconds, {label: compiler log})."""
     t0 = time.perf_counter()
-    logs = build(KERNELS)
+    logs = build(KERNELS + tuple(variants))
     return time.perf_counter() - t0, logs

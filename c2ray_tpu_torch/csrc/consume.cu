@@ -10,27 +10,49 @@
 // phih cube, and the per-source boundary and LLS photon losses are tallied.
 // Any cubic n; isothermal; LLS off or type 1.
 //
-// What bounds it on the H100: the exponentials.  Each (cell, source)
-// evaluates K mixture terms with one expf and one expm1f each (two more
-// with the LLS tally): ~32 transcendental calls per cell and source at
-// K = 8, against ~1.2 GB of compulsory traffic at 256^3 x 16 (the cdo
-// cube read once, the density read and phih written once).
+// What bounds it on the H100 depends on the data.  A live (cell, source)
+// pair (inside max_shell, incoming column <= max_coldensh) evaluates K
+// mixture terms with one expf and one expm1f each, two more with the LLS
+// tally: 4K + 5 SFU results per pair (37 at K = 8), so with every cell
+// lit the SFU bounds it (~2.4 ms at 256^3 x 16, 16 results per clock per
+// SM); in practice the instruction issue does, since expm1f is a software
+// sequence of a few dozen instructions around one SFU result.  A dead
+// pair adds exactly zero and needs only its column: on optically thick
+// grids, where most rays stop after a cell, the compulsory bytes bound it
+// (the column cube read once, 1.07 GB, 0.32 ms at 3.35 TB/s).
 //
-// Design (first, simple form):
-//  * one thread per grid cell; it loops over the B sources in a fixed
-//    order, so phih is deterministic without atomics; reads of each
-//    source's centred cube at ((i - s + c) mod n, ...) are contiguous
-//    along the fast axis;
-//  * the K mixture terms (a_k, w_k) are read from two small device arrays
-//    that every thread shares (broadcast loads);
+// Design:
+//  * one thread per grid cell, a 3-D launch with k fastest: a block is 32
+//    k by 8 j of one i, a warp 32 consecutive k of one j, so the column
+//    reads of a source are contiguous and liveness is nearly
+//    warp-uniform.  No 64-bit division or modulo: source offsets lie in
+//    (-n, 2n) and wrap by compare and subtract;
+//  * the thread loops over the B sources in a fixed order, so phih is
+//    deterministic without atomics;
+//  * the column and the live test come first; a dead pair skips the
+//    mixture (its rate, boundary loss and LLS tally are exactly zero, as
+//    the plain version's masks make them, and a NaN stays where the pair
+//    is live), and a warp whose pairs are all dead skips its two shuffle
+//    reductions too;
+//  * most dead pairs skip the geometry as well: a path is at most sqrt(3)
+//    cells and float rounding is monotonic, so cd - nd * fl(sqrt(3) * dr)
+//    > max_coldensh already implies cin > max_coldensh (for nd >= 0); only
+//    the other pairs pay the division and the sqrt of their path;
+//  * source cells, fluxes and the K mixture terms (a_k, w_k) are staged in
+//    shared memory once per block; the mixture loop is unrolled by 8 and
+//    the LLS tally is a template parameter, so neither costs a branch per
+//    term;
 //  * expf / expm1f follow _photoion_expsum_impl exactly, including the
-//    separate 80-clamp on the pre-LLS optical depth (the TPU kernel's
-//    Taylor expm1 existed only because Mosaic lacked expm1);
+//    separate 80-clamp on the pre-LLS optical depth (no exponential is
+//    shared between the main and the LLS terms: that would change the
+//    rounding);
 //  * the boundary-loss divisor is 1/vol_ph as in _rate_pass; the TPU
 //    kernel's 1/(vol*ndhi)*ndhi form gives NaN at zero density;
 //  * per-source losses reduce in two deterministic stages: warp shuffles
 //    and a per-block sum into (2, B, nblocks) partials, then a second
-//    launch sums each source's partials in a fixed order in double.
+//    launch sums each source's partials in a fixed order in double.  The
+//    block count comes from c2r_consume_nblocks, which the wrapper calls
+//    to size the partials.
 // Built with --fmad=false so each product and sum rounds as in the plain
 // PyTorch version.
 
@@ -41,8 +63,10 @@ namespace {
 
 constexpr float kSigma = 6.30e-18f;             // SIGMA_HI_AT_ION_FREQ
 constexpr float kFourPi = 12.566370614359172f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr float kSqrt3 = 1.7320508075688772f;   // the longest path, cells
+constexpr int kTileK = 32;                      // one warp of k
+constexpr int kTileJ = 8;                       // warps per block
+constexpr int kThreads = kTileK * kTileJ;
 
 struct Consume {
   const float* cdo;      // (B, n, n, n) centred coldensh_out
@@ -55,12 +79,14 @@ struct Consume {
   float* partial;        // (2, B, nblocks)
   int K, nsrc, n, max_shell;
   float dr, rate_scale, lcol, max_coldensh;
-  int use_lls;
 };
 
-__device__ __forceinline__ int wrapn(int x, int n) {
-  int r = x % n;
-  return r < 0 ? r + n : r;
+dim3 cell_grid(int n) {
+  return dim3((n + kTileK - 1) / kTileK, (n + kTileJ - 1) / kTileJ, n);
+}
+
+__device__ __forceinline__ int wrap1(int x, int n) {
+  return x < 0 ? x + n : (x >= n ? x - n : x);
 }
 
 // max(x, 0) and min(x, 80) that keep a NaN, as jnp/torch do
@@ -72,89 +98,122 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void consume_cells(Consume p) {
-  extern __shared__ float red[];                 // [2][B][kWarps]
+template <bool kLLS>
+__global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
+  extern __shared__ float smem[];
+  const int nsrc = p.nsrc, K = p.K;
+  float* red = smem;                             // [2][B][kTileJ]
+  float* s_nf = red + 2 * nsrc * kTileJ;         // [B]
+  float* s_a = s_nf + nsrc;                      // [K]
+  float* s_w = s_a + K;                          // [K]
+  int* s_pos = reinterpret_cast<int*>(s_w + K);  // [B][3]
+  const int tid = threadIdx.y * kTileK + threadIdx.x;
+  for (int q = tid; q < 3 * nsrc; q += kThreads) s_pos[q] = p.srcpos[q];
+  for (int q = tid; q < nsrc; q += kThreads) s_nf[q] = p.nflux[q];
+  for (int q = tid; q < K; q += kThreads) {
+    s_a[q] = p.mix_a[q];
+    s_w[q] = p.mix_w[q];
+  }
+  __syncthreads();
+
   const int n = p.n, c = n / 2, pos_max = n - 1 - c;
   const size_t n3 = (size_t)n * n * n;
-  const size_t cell = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = cell < n3;
-  const int i = valid ? (int)(cell / ((size_t)n * n)) : 0;
-  const int j = valid ? (int)((cell / n) % n) : 0;
-  const int k = valid ? (int)(cell % n) : 0;
+  const int kk = blockIdx.x * kTileK + threadIdx.x;
+  const int jj = blockIdx.y * kTileJ + threadIdx.y;
+  const bool valid = kk < n && jj < n;
+  const int i = blockIdx.z, j = valid ? jj : 0, k = valid ? kk : 0;
+  const size_t cell = ((size_t)i * n + j) * n + k;
   const float nd = valid ? p.ndhi[cell] : 1.f;
+  // the most column a cell can add (path <= sqrt(3)); rounding is
+  // monotonic, so cd - col_hi > max_coldensh implies cin > max_coldensh
+  const float col_hi = nd * (kSqrt3 * p.dr);
+  const bool can_stop = nd >= 0.f;
   const int p_lim = min(p.max_shell, pos_max), q_lim = min(p.max_shell, c);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.y, lane = threadIdx.x;
   float acc = 0.f;
 
-  for (int src = 0; src < p.nsrc; ++src) {
-    const int oi = wrapn(i - p.srcpos[3 * src] + c, n) - c;
-    const int oj = wrapn(j - p.srcpos[3 * src + 1] + c, n) - c;
-    const int ok = wrapn(k - p.srcpos[3 * src + 2] + c, n) - c;
+  for (int src = 0; src < nsrc; ++src) {
+    const int oi = wrap1(i - s_pos[3 * src] + c, n) - c;
+    const int oj = wrap1(j - s_pos[3 * src + 1] + c, n) - c;
+    const int ok = wrap1(k - s_pos[3 * src + 2] + c, n) - c;
     const int cheb = max(max(abs(oi), abs(oj)), abs(ok));
-    const bool is_src = cheb == 0;
+    const float cd = valid
+        ? __ldg(p.cdo + src * n3 + ((size_t)(oi + c) * n + (oj + c)) * n +
+                (ok + c))
+        : 0.f;
+    // dead for sure: no geometry needed
+    bool live = valid && cheb <= p.max_shell &&
+                !(can_stop && cd - col_hi > p.max_coldensh);
     // geometry, exactly _rate_pass
+    const bool is_src = cheb == 0;
     const float dom = (float)cheb;
-    const float safe_d = fmaxf(dom, 1.f);
     const float fi = (float)oi, fj = (float)oj, fk = (float)ok;
     const float dist2 = fi * fi + fj * fj + fk * fk;
-    const float t2 = dist2 - dom * dom;
-    float path = sqrtf(t2 / (safe_d * safe_d) + 1.f);
-    if (is_src) path = 0.5f;
-    float vol_ph = kFourPi * dist2 * path;
-    if (is_src) vol_ph = 1.f;
-
-    const float cd = valid
-        ? p.cdo[src * n3 + ((size_t)(oi + c) * n + (oj + c)) * n + (ok + c)]
-        : 0.f;
-    const float colcell = nd * (path * p.dr);
-    const float cin = max0(cd - colcell);
-    const bool live = valid && cheb <= p.max_shell && !(cin > p.max_coldensh);
-
-    const float tau_in = cin * kSigma;
-    const float dtau = (cd - cin) * kSigma;
-    float tau_pre = 0.f, dtau_pre = 0.f;
-    if (p.use_lls) {
-      const float cold_pre = max0(cin - p.lcol * path);
-      tau_pre = cold_pre * kSigma;
-      dtau_pre = (cin - cold_pre) * kSigma;
+    float path = 0.5f, cin = 0.f;
+    if (live) {
+      const float safe_d = fmaxf(dom, 1.f);
+      const float t2 = dist2 - dom * dom;
+      if (!is_src) path = sqrtf(t2 / (safe_d * safe_d) + 1.f);
+      const float colcell = nd * (path * p.dr);
+      cin = max0(cd - colcell);
+      live = !(cin > p.max_coldensh);
     }
-    float phi_in = 0.f, phi_cell = 0.f, lls_acc = 0.f;
-    for (int t = 0; t < p.K; ++t) {
-      const float a = __ldg(p.mix_a + t), w = __ldg(p.mix_w + t);
-      const float att = expf(-min80(a * tau_in));
-      const float absorb = att * -expm1f(-min80(a * dtau));
-      phi_in = phi_in + w * att;
-      phi_cell = phi_cell + w * absorb;
-      if (p.use_lls) {
-        const float att_pre = expf(-min80(a * tau_pre));
-        lls_acc = lls_acc + (w * att_pre) * -expm1f(-min80(a * dtau_pre));
+
+    float loss = 0.f, lls = 0.f;
+    if (live) {
+      float vol_ph = kFourPi * dist2 * path;
+      if (is_src) vol_ph = 1.f;
+      const float tau_in = cin * kSigma;
+      const float dtau = (cd - cin) * kSigma;
+      float tau_pre = 0.f, dtau_pre = 0.f;
+      if (kLLS) {
+        const float cold_pre = max0(cin - p.lcol * path);
+        tau_pre = cold_pre * kSigma;
+        dtau_pre = (cin - cold_pre) * kSigma;
       }
+      float phi_in = 0.f, phi_cell = 0.f, lls_acc = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < K; ++t) {
+        const float a = s_a[t], w = s_w[t];
+        const float att = expf(-min80(a * tau_in));
+        const float absorb = att * -expm1f(-min80(a * dtau));
+        phi_in = phi_in + w * att;
+        phi_cell = phi_cell + w * absorb;
+        if (kLLS) {
+          const float att_pre = expf(-min80(a * tau_pre));
+          lls_acc = lls_acc + (w * att_pre) * -expm1f(-min80(a * dtau_pre));
+        }
+      }
+      const float nf = s_nf[src];
+      phi_in = nf * phi_in;
+      phi_cell = nf * phi_cell;
+      const float phi_out = phi_in - phi_cell;
+      const float photo_cell = phi_cell / vol_ph;
+      acc = acc + photo_cell * p.rate_scale / nd;
+      const bool bnd = oi == p_lim || oi == -q_lim || oj == p_lim ||
+                       oj == -q_lim || ok == p_lim || ok == -q_lim;
+      if (bnd) loss = phi_out / vol_ph;
+      if (kLLS) lls = nf * lls_acc / vol_ph;
     }
-    const float nf = __ldg(p.nflux + src);
-    phi_in = nf * phi_in;
-    phi_cell = nf * phi_cell;
-    const float phi_out = phi_in - phi_cell;
-    const float photo_cell = phi_cell / vol_ph;
-    const float gamma = live ? photo_cell * p.rate_scale / nd : 0.f;
-    acc = acc + gamma;
-
-    const bool bnd = oi == p_lim || oi == -q_lim || oj == p_lim ||
-                     oj == -q_lim || ok == p_lim || ok == -q_lim;
-    float loss = (live && bnd) ? phi_out / vol_ph : 0.f;
-    float lls = (live && p.use_lls) ? nf * lls_acc / vol_ph : 0.f;
-    loss = warp_sum(loss);
-    lls = warp_sum(lls);
+    // a dead pair adds +0 to the warp's sums: skip them when all are dead
+    if (__any_sync(0xffffffffu, live)) {
+      loss = warp_sum(loss);
+      lls = warp_sum(lls);
+    }
     if (lane == 0) {
-      red[(0 * p.nsrc + src) * kWarps + warp] = loss;
-      red[(1 * p.nsrc + src) * kWarps + warp] = lls;
+      red[(0 * nsrc + src) * kTileJ + warp] = loss;
+      red[(1 * nsrc + src) * kTileJ + warp] = lls;
     }
   }
   if (valid) p.phih[cell] = acc;
   __syncthreads();
-  for (int q = threadIdx.x; q < 2 * p.nsrc; q += blockDim.x) {
+  const int nblocks = gridDim.x * gridDim.y * gridDim.z;
+  const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                    blockIdx.x;
+  for (int q = tid; q < 2 * nsrc; q += kThreads) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[q * kWarps + w];
-    p.partial[(size_t)q * gridDim.x + blockIdx.x] = s;
+    for (int w = 0; w < kTileJ; ++w) s += red[q * kTileJ + w];
+    p.partial[(size_t)q * nblocks + block] = s;
   }
 }
 
@@ -178,7 +237,13 @@ __global__ void consume_reduce(const float* partial, int nblocks,
 
 extern "C" {
 
-// partial: scratch of 2*B*nblocks floats, nblocks = ceil(n^3 / 256).
+// Blocks of the cell launch at mesh n: the partials hold 2*B of these.
+int c2r_consume_nblocks(int n) {
+  const dim3 g = cell_grid(n);
+  return (int)(g.x * g.y * g.z);
+}
+
+// partial: scratch of 2*B*c2r_consume_nblocks(n) floats.
 // loss: (2, B) -> row 0 boundary losses, row 1 LLS losses.  Returns the
 // first CUDA error code, 0 on success.
 int c2r_consume(const float* cdo, const float* ndhi, const int* srcpos,
@@ -204,15 +269,18 @@ int c2r_consume(const float* cdo, const float* ndhi, const int* srcpos,
   p.rate_scale = rate_scale;
   p.lcol = lcol;
   p.max_coldensh = max_coldensh;
-  p.use_lls = use_lls;
-  const size_t n3 = (size_t)n * n * n;
-  const int nblocks = (int)((n3 + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)2 * nsrc * kWarps * sizeof(float);
+  const size_t smem = (size_t)(2 * nsrc * kTileJ + nsrc + 2 * K) *
+                          sizeof(float) + (size_t)3 * nsrc * sizeof(int);
   cudaStream_t st = (cudaStream_t)stream;
-  consume_cells<<<nblocks, kThreads, smem, st>>>(p);
+  const dim3 grid = cell_grid(n), block(kTileK, kTileJ);
+  if (use_lls)
+    consume_cells<true><<<grid, block, smem, st>>>(p);
+  else
+    consume_cells<false><<<grid, block, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  consume_reduce<<<2 * nsrc, kThreads, 0, st>>>(partial, nblocks, loss);
+  consume_reduce<<<2 * nsrc, kThreads, 0, st>>>(
+      partial, c2r_consume_nblocks(n), loss);
   err = cudaGetLastError();
   return (int)err;
 }

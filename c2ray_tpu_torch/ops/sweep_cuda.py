@@ -37,18 +37,22 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel -> (library, C symbol, argument types)
 _SIGNATURES = {
     "march": ("march", "c2r_march",
-              [_vp, _vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp]),
+              [_vp, _vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp, _vp,
+               _vp]),
     "window_march": ("march", "c2r_march_windows",
                      [_vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp]),
     "consume": ("consume", "c2r_consume",
                 [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
                  _i, _f, _vp, _vp, _vp, _vp]),
+    # blocks of the consume kernel's cell launch at mesh n: the size of
+    # its loss partials, from the kernel's own launch shape
+    "consume_nblocks": ("consume", "c2r_consume_nblocks", [_i]),
 }
 
 
-def _entry(name: str, signatures=_SIGNATURES):
+def _entry(name: str, signatures=_SIGNATURES, defines=()):
     lib_name, sym, argtypes = signatures[name]
-    lib = _build.load(lib_name)
+    lib = _build.load(lib_name, defines)
     fn = getattr(lib, sym)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -113,6 +117,15 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
     if ndhi.device.type == "cpu":
         return compute_columns_grid_reference(cfg, ndhi, srcpos_b, sc,
                                               max_shell)
+    out, launches = _grid_march(cfg, ndhi, srcpos_b, sc, max_shell)
+    LAUNCHES["march"] += launches
+    return out
+
+
+def _grid_march(cfg: RunConfig, ndhi: torch.Tensor, srcpos_b: torch.Tensor,
+                sc: SweepScalars, max_shell: int, defines=()):
+    """Launch K1 (from the library built with `defines`, the shipped one
+    by default) -> (out, kernel launches made)."""
     n = ndhi.shape[0]
     b = srcpos_b.shape[0]
     _check_cuda("ndhi", ndhi, torch.float32, (n, n, n))
@@ -124,19 +137,23 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
                          f"1..{MAX_BATCH}")
     _slice_options(cfg)
     nshell = _shells(max_shell, n)
-    lib, fn = _entry("march")
+    lib, fn = _entry("march", defines=defines)
     out = _columns_out((b, n, n, n), nshell, ndhi.device)
-    planes = torch.empty((2, b, 6, n, n), dtype=torch.float32,
+    # zero-filled: a shell reads corners just outside the previous shell's
+    # live square (with zero weight), which must hold finite values
+    planes = torch.zeros((2, b, 6, n, n), dtype=torch.float32,
                          device=ndhi.device)
+    # the z faces' cells, z-major, before their transpose into out
+    zst = torch.empty((b, n, n, n), dtype=torch.float32, device=ndhi.device)
     ndhi_zt = ndhi.permute(2, 0, 1).contiguous()     # [z][x][y]
     use_lls = int(cfg.use_lls and cfg.type_of_lls == 1)
     stream = torch.cuda.current_stream(ndhi.device).cuda_stream
+    launches = ctypes.c_int(0)
     rc = fn(ndhi.data_ptr(), ndhi_zt.data_ptr(), srcpos_b.data_ptr(), b, n,
             nshell, sc.dr, sc.lls_coldens, use_lls, planes.data_ptr(),
-            out.data_ptr(), stream)
+            zst.data_ptr(), out.data_ptr(), ctypes.byref(launches), stream)
     _check_rc(lib, rc, "march")
-    LAUNCHES["march"] += nshell
-    return out
+    return out, launches.value
 
 
 def _shells(max_shell: int, n: int) -> int:
@@ -243,7 +260,7 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
         raise ValueError(f"batch of {b} sources; the consume kernel takes "
                          f"1..{MAX_BATCH}")
     lib, fn = _entry("consume")
-    nblocks = -(-n * n * n // 256)
+    nblocks = _entry("consume_nblocks")[1](n)
     phih = torch.empty((n, n, n), dtype=torch.float32, device=dev)
     partial = torch.empty((2, b, nblocks), dtype=torch.float32, device=dev)
     loss = torch.empty((2, b), dtype=torch.float32, device=dev)

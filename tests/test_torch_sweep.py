@@ -226,3 +226,137 @@ def test_wrappers_refuse_non_cpu_tensors_without_cuda():
         pw.window_gather(ndhi, pos, 2)
     with pytest.raises(ValueError):
         pw.window_scatter_add(ndhi, wins, pos)
+
+
+def _corner_positions(n):
+    """Sources at corners, on wrapping edges and inside."""
+    return np.asarray([[0, 0, 0], [n - 1, n - 1, n - 1], [0, n - 1, n // 2],
+                       [3 % n, 11 % n, 7 % n]], np.int32)
+
+
+@pytest.mark.parametrize("n, use_lls, max_shell", [
+    (15, False, None), (15, True, None), (16, False, None), (16, True, None),
+    (24, False, None), (24, True, None), (16, True, 5)])
+def test_march_live_square_suffices(monkeypatch, n, use_lls, max_shell):
+    """The premise of K1's live-square march: with every plane cell
+    outside |t| <= d-1 zeroed before shell d (what the kernel's zero-filled
+    ping-pong planes hold there), the plain march gives the bitwise same
+    cube, so shell d need only compute |t| <= d."""
+    _, pcfg = _pair(n, "float32", use_lls=use_lls)
+    c = n // 2
+    psc = ps.sweep_scalars(pcfg, 2.9e24 / (n / 16), 1e16)
+    ndhi = torch.from_numpy(_field(n, np.float32, seed=n + 1))
+    pos = torch.from_numpy(_corner_positions(n))
+    shells = c if max_shell is None else max_shell
+    want = ps.march_columns(pcfg, ndhi, pos, psc, shells)
+
+    update = ps._wavefront_plane_update
+    seen = []
+
+    def live_square_only(prev, ndhi_p, lcol, d, cfg, dr, n_):
+        inside = (torch.arange(n_) - n_ // 2).abs() <= d - 1
+        square = inside[:, None] & inside[None, :]
+        seen.append(int((~square).sum()))
+        return update(torch.where(square, prev, torch.zeros_like(prev)),
+                      ndhi_p, lcol, d, cfg, dr, n_)
+
+    monkeypatch.setattr(ps, "_wavefront_plane_update", live_square_only)
+    got = ps.march_columns(pcfg, ndhi, pos, psc, shells)
+    assert len(seen) == min(shells, c) and seen[-1] > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_lls", [False, True])
+@pytest.mark.parametrize("capped", [False, True])
+def test_consume_dead_pairs_contribute_nothing(monkeypatch, use_lls, capped):
+    """The premise of K2's dead-pair skip: with the mixture results of
+    every dead (cell, source) pair (beyond max_shell, or incoming column
+    above max_coldensh) replaced by NaN, consume_rates_reference returns
+    the same phih, losses and LLS losses bitwise; a zero-density cell stays
+    NaN where its pair is live."""
+    from c2ray_tpu_torch.ops.tables import build_rad_tables
+
+    n, b = 16, 3
+    c = n // 2
+    max_shell = c // 2 if capped else c
+    _, pcfg = _pair(n, "float32", use_lls=use_lls, source_batch=b)
+    tabs = build_rad_tables(pcfg, device="cpu")
+    psc = ps.sweep_scalars(pcfg, 1e21, 1e16)
+    rng = np.random.default_rng(17)
+    ndhi = _field(n, np.float32, seed=3)
+    # columns climb past max_coldensh (2e19) along the fast axis
+    cdo = np.cumsum(rng.uniform(1e17, 4e18, (b, n, n, n)), axis=3)
+    pos_np = _corner_positions(n)[:b]
+    # a zero-density cell two cells from source 0, its pair there live
+    zero = np.array([1, 2, 1])
+    ndhi[tuple(zero)] = 0.0
+    cdo[(0, *((zero - pos_np[0] + c) % n))] = 1e17
+    pos = torch.from_numpy(pos_np)
+    nflux = torch.from_numpy((10.0 ** rng.uniform(6, 9, b))
+                             .astype(np.float32))
+    args = (pcfg, tabs, torch.from_numpy(cdo.astype(np.float32)),
+            torch.from_numpy(ndhi), pos, nflux, psc, max_shell)
+    want = pk.consume_rates_reference(*args)
+
+    o = (torch.arange(n) - c).abs()
+    cheb = torch.maximum(torch.maximum(o[:, None, None], o[None, :, None]),
+                         o[None, None, :])
+    dead_pairs = []
+
+    def poison(fn):
+        def wrapped(cfg, tables, coldensh_in, *rest):
+            dead = (cheb > max_shell) | (coldensh_in > cfg.max_coldensh)
+            dead_pairs.append(int(dead.sum()))
+            out = fn(cfg, tables, coldensh_in, *rest)
+            nan = lambda x: torch.where(dead, float("nan"), x)  # noqa: E731
+            if isinstance(out, tuple) and not hasattr(out, "_fields"):
+                rates, lls_cell = out
+                return type(rates)(*map(nan, rates)), nan(lls_cell)
+            return type(out)(*map(nan, out))
+        return wrapped
+
+    monkeypatch.setattr(ps, "photoion_rates", poison(ps.photoion_rates))
+    monkeypatch.setattr(ps, "photoion_rates_lls_fused",
+                        poison(ps.photoion_rates_lls_fused))
+    got = pk.consume_rates_reference(*args)
+    assert len(dead_pairs) == b and 0 < min(dead_pairs)
+    assert max(dead_pairs) < n ** 3
+    assert bool(torch.isnan(want[0]).any())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+
+
+@pytest.mark.parametrize("dr", [1e21, 2.9e24 / 4])
+def test_consume_stop_bound_is_conservative(dr):
+    """K2 skips the geometry of a pair when cd - nd * fl(sqrt(3) * dr) >
+    max_coldensh: the path is at most sqrt(3) cells and float32 rounding is
+    monotonic, so such a pair always has cin > max_coldensh.  Checked in
+    float32 at pairs around the threshold, for every cell offset of a
+    16^3 cube."""
+    n = 16
+    _, pcfg = _pair(n, "float32")
+    c = n // 2
+    rng = np.random.default_rng(23)
+    o = torch.arange(n) - c
+    oi, oj, ok = o[:, None, None], o[None, :, None], o[None, None, :]
+    cheb = torch.maximum(torch.maximum(oi.abs(), oj.abs()), ok.abs())
+    dom = cheb.to(torch.float32)
+    dist2 = (oi * oi + oj * oj + ok * ok).to(torch.float32)
+    path = torch.sqrt((dist2 - dom * dom) / dom.clamp(min=1.0) ** 2 + 1.0)
+    path = torch.where(cheb == 0, 0.5, path)
+    dr32 = torch.tensor(dr, dtype=torch.float32)
+    col_hi_per_nd = torch.tensor(np.float32(np.sqrt(3.0))) * dr32
+    top = torch.tensor(pcfg.max_coldensh, dtype=torch.float32)
+    for _ in range(20):
+        nd = torch.from_numpy(rng.uniform(0.0, 2e-4, (n, n, n))
+                              .astype(np.float32))
+        colcell = nd * (path * dr32)
+        col_hi = nd * col_hi_per_nd
+        # columns within a few cells' worth of the threshold
+        cd = top + torch.from_numpy(rng.uniform(-2.0, 3.0, (n, n, n))
+                                    .astype(np.float32)) * col_hi
+        cin = torch.clamp(cd - colcell, min=0.0)
+        sure = cd - col_hi > top
+        assert bool(sure.any()) and not bool(sure.all())
+        assert bool((cin[sure] > top).all())
