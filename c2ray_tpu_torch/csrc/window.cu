@@ -15,16 +15,29 @@
 // accumulator cell (3*B*p^3*4 B: 15.1 MB, 4.5 us).  There is no arithmetic
 // to speak of.
 //
-// Design (first, simple form): one thread per window cell, neighbouring
-// threads on neighbouring z, so each warp reads and writes runs of p
-// contiguous floats.  The gather is a strided block copy.  The scatter adds
-// with atomicAdd in float, because windows overlap each other (and repeat
-// where two sources share a cell); the TPU kernel relied on its sequential
-// grid for a fixed summation order, so here the order of the sums, and
-// with it the last bits of a cell that several windows cover, changes from
-// run to run.  A window whose corner lies outside [0, m-p] is skipped, so
-// a bad position cannot write outside the accumulator (the callers check
-// positions on the host).
+// Design of the gather (gather_slabs): a division-free slab copy.  One
+// block per (window, x-slab i), a (32, 8) thread block: each warp copies
+// rows j, j+8, ... of the slab, k in steps of 32, so a warp reads a run of
+// p contiguous floats of the padded field and writes the matching
+// contiguous row of the window.  The block computes its two base pointers
+// once; the offsets inside the slab are 32-bit and need no division or
+// modulo.  Each row is read once; windows that overlap find theirs in L2.
+// A window whose corner lies outside [0, m-p] is written as zeros (a
+// per-block early exit).  A build with C2R_WINDOW_GATHER_PER_CELL (timing
+// only, never the shipped one) runs the first form instead, gather_cells:
+// one thread per window cell, located by division, so the two can be
+// compared on the card.
+//
+// Design of the scatter-add (scatter_cells, the first, simple form): one
+// thread per window cell, neighbouring threads on neighbouring z, each
+// cell located by division (locate).  It adds with atomicAdd in float,
+// because windows overlap each other (and repeat where two sources share a
+// cell); the TPU kernel relied on its sequential grid for a fixed
+// summation order, so here the order of the sums, and with it the last
+// bits of a cell that several windows cover, changes from run to run.  A
+// window whose corner lies outside [0, m-p] is skipped, so a bad position
+// cannot write outside the accumulator (the callers check positions on the
+// host).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -32,6 +45,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRowLanes = 32, kRowWarps = 8;     // the gather's block
 
 struct Cell {
   size_t src;   // (B, p, p, p) offset of this window cell
@@ -56,12 +70,42 @@ __device__ __forceinline__ Cell locate(const int* pos, int m, int p,
   return cell;
 }
 
+__device__ __forceinline__ bool corner_ok(int q0, int q1, int q2, int m,
+                                          int p) {
+  return q0 >= 0 && q1 >= 0 && q2 >= 0 && q0 <= m - p && q1 <= m - p &&
+         q2 <= m - p;
+}
+
+#ifdef C2R_WINDOW_GATHER_PER_CELL
 __global__ void gather_cells(const float* field, int m, const int* pos,
                              size_t total, int p, float* out) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const Cell cell = locate(pos, m, p, idx);
   out[idx] = cell.ok ? field[cell.pad] : 0.f;
+}
+#endif
+
+// Block (window w, slab i): out[w][i][j][k] <- field[q0+i][q1+j][q2+k].
+__global__ void __launch_bounds__(kRowLanes * kRowWarps)
+gather_slabs(const float* __restrict__ field, int m,
+             const int* __restrict__ pos, int p, float* __restrict__ out) {
+  const int w = blockIdx.x, i = blockIdx.y;
+  const int q0 = __ldg(pos + 3 * w), q1 = __ldg(pos + 3 * w + 1),
+            q2 = __ldg(pos + 3 * w + 2);
+  float* o = out + ((size_t)w * p + i) * p * p;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (!corner_ok(q0, q1, q2, m, p)) {
+    for (int j = ty; j < p; j += kRowWarps)
+      for (int k = tx; k < p; k += kRowLanes) o[j * p + k] = 0.f;
+    return;
+  }
+  const float* src = field + ((size_t)(q0 + i) * m + q1) * m + q2;
+  for (int j = ty; j < p; j += kRowWarps) {
+    const float* row = src + j * m;
+    float* orow = o + j * p;
+    for (int k = tx; k < p; k += kRowLanes) orow[k] = __ldg(row + k);
+  }
 }
 
 __global__ void scatter_cells(float* acc, int m, const int* pos,
@@ -82,9 +126,14 @@ extern "C" {
 // Returns the first CUDA error code, 0 on success.
 int c2r_window_gather(const float* field, int m, const int* pos, int nwin,
                       int p, float* out, void* stream) {
+#ifdef C2R_WINDOW_GATHER_PER_CELL
   const size_t total = (size_t)nwin * p * p * p;
   gather_cells<<<blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
       field, m, pos, total, p, out);
+#else
+  gather_slabs<<<dim3(nwin, p), dim3(kRowLanes, kRowWarps), 0,
+                 (cudaStream_t)stream>>>(field, m, pos, p, out);
+#endif
   return (int)cudaGetLastError();
 }
 

@@ -40,7 +40,10 @@ _SIGNATURES = {
               [_vp, _vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp, _vp,
                _vp]),
     "window_march": ("march", "c2r_march_windows",
-                     [_vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp]),
+                     [_vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp, _vp]),
+    # 1 if the window march runs its cluster form at window extent p, 0
+    # for the per-shell form: the kernel's own choice
+    "window_march_cluster": ("march", "c2r_march_windows_cluster", [_i]),
     "consume": ("consume", "c2r_consume",
                 [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
                  _i, _f, _vp, _vp, _vp, _vp]),
@@ -189,6 +192,15 @@ def compute_columns_windows(cfg: RunConfig, wins: torch.Tensor,
     compute_columns_pallas on the windowed path)."""
     if wins.device.type == "cpu":
         return compute_columns_windows_reference(cfg, wins, sc, max_shell)
+    out, launches = _window_march(cfg, wins, sc, max_shell)
+    LAUNCHES["window_march"] += launches
+    return out
+
+
+def _window_march(cfg: RunConfig, wins: torch.Tensor, sc: SweepScalars,
+                  max_shell: int, defines=()):
+    """Launch K3 (from the library built with `defines`, the shipped one
+    by default) -> (out, kernel launches made)."""
     b, p = wins.shape[0], wins.shape[-1]
     _check_cuda("wins", wins, torch.float32, (b, p, p, p))
     if not 1 <= b <= MAX_WINDOWS:
@@ -196,17 +208,20 @@ def compute_columns_windows(cfg: RunConfig, wins: torch.Tensor,
                          f"1..{MAX_WINDOWS}")
     _slice_options(cfg)
     nshell = _shells(max_shell, p)
-    lib, fn = _entry("window_march")
+    lib, fn = _entry("window_march", defines=defines)
     out = _columns_out((b, p, p, p), nshell, wins.device)
+    # the per-shell form's ping-pong planes (the cluster form keeps its
+    # planes in shared memory and ignores these)
     planes = torch.empty((2, b, 6, p, p), dtype=torch.float32,
                          device=wins.device)
     use_lls = int(cfg.use_lls and cfg.type_of_lls == 1)
     stream = torch.cuda.current_stream(wins.device).cuda_stream
+    launches = ctypes.c_int(0)
     rc = fn(wins.data_ptr(), b, p, nshell, sc.dr, sc.lls_coldens, use_lls,
-            planes.data_ptr(), out.data_ptr(), stream)
+            planes.data_ptr(), out.data_ptr(), ctypes.byref(launches),
+            stream)
     _check_rc(lib, rc, "window march")
-    LAUNCHES["window_march"] += nshell
-    return out
+    return out, launches.value
 
 
 # ---------------------------------------------------------------------------

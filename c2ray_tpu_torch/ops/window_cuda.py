@@ -95,9 +95,18 @@ def window_gather(field_pad: torch.Tensor, pos: torch.Tensor,
     coordinates, so the source sits at its centre."""
     if field_pad.device.type == "cpu":
         return window_gather_reference(field_pad, pos, radius)
+    out = _window_gather(field_pad, pos, radius)
+    LAUNCHES["window_gather"] += 1
+    return out
+
+
+def _window_gather(field_pad: torch.Tensor, pos: torch.Tensor, radius: int,
+                   defines=()) -> torch.Tensor:
+    """Launch K4 (from the library built with `defines`, the shipped one
+    by default) -> the (B,p,p,p) windows."""
     p = 2 * radius + 1
     _check_windows(field_pad, pos, p)
-    lib, fn = _entry("window_gather", _SIGNATURES)
+    lib, fn = _entry("window_gather", _SIGNATURES, defines)
     b = pos.shape[0]
     out = torch.empty((b, p, p, p), dtype=torch.float32,
                       device=field_pad.device)
@@ -105,7 +114,6 @@ def window_gather(field_pad: torch.Tensor, pos: torch.Tensor,
     rc = fn(field_pad.data_ptr(), field_pad.shape[0], pos.data_ptr(), b, p,
             out.data_ptr(), stream)
     _check_rc(lib, rc, "window gather")
-    LAUNCHES["window_gather"] += 1
     return out
 
 

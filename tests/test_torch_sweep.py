@@ -234,21 +234,45 @@ def _corner_positions(n):
                        [3 % n, 11 % n, 7 % n]], np.int32)
 
 
-@pytest.mark.parametrize("n, use_lls, max_shell", [
-    (15, False, None), (15, True, None), (16, False, None), (16, True, None),
-    (24, False, None), (24, True, None), (16, True, 5)])
-def test_march_live_square_suffices(monkeypatch, n, use_lls, max_shell):
-    """The premise of K1's live-square march: with every plane cell
-    outside |t| <= d-1 zeroed before shell d (what the kernel's zero-filled
-    ping-pong planes hold there), the plain march gives the bitwise same
-    cube, so shell d need only compute |t| <= d."""
+_LIVE_SQUARE_CASES = [
+    pytest.param("grid", n, lls, ms, id=f"{n}-{lls}-{ms}")
+    for n, lls, ms in [(15, False, None), (15, True, None), (16, False, None),
+                       (16, True, None), (24, False, None), (24, True, None),
+                       (16, True, 5)]
+] + [
+    pytest.param("window", p, lls, ms, id=f"window-{p}-{lls}-{ms}")
+    for p, lls, ms in [(9, False, None), (9, True, None), (17, False, None),
+                       (17, True, None), (33, False, None), (33, True, None),
+                       (17, True, 5)]
+]
+
+
+@pytest.mark.parametrize("mode, n, use_lls, max_shell", _LIVE_SQUARE_CASES)
+def test_march_live_square_suffices(monkeypatch, mode, n, use_lls,
+                                    max_shell):
+    """The premise of the live-square marches, K1's (grid mode, through
+    march_columns) and K3's (window mode, through march_windows on a
+    batch of p^3 windows): with every plane cell outside |t| <= d-1 zeroed
+    before shell d (what the kernels' zero-filled ping-pong planes hold
+    there), the plain march gives the bitwise same cube, so shell d need
+    only compute |t| <= d."""
     _, pcfg = _pair(n, "float32", use_lls=use_lls)
     c = n // 2
     psc = ps.sweep_scalars(pcfg, 2.9e24 / (n / 16), 1e16)
-    ndhi = torch.from_numpy(_field(n, np.float32, seed=n + 1))
-    pos = torch.from_numpy(_corner_positions(n))
+    if mode == "grid":
+        ndhi = torch.from_numpy(_field(n, np.float32, seed=n + 1))
+        pos = torch.from_numpy(_corner_positions(n))
+
+        def march(shells):
+            return ps.march_columns(pcfg, ndhi, pos, psc, shells)
+    else:
+        wins = torch.from_numpy(np.stack(
+            [_field(n, np.float32, seed=n + q) for q in range(3)]))
+
+        def march(shells):
+            return ps.march_windows(pcfg, wins, psc, shells)
     shells = c if max_shell is None else max_shell
-    want = ps.march_columns(pcfg, ndhi, pos, psc, shells)
+    want = march(shells)
 
     update = ps._wavefront_plane_update
     seen = []
@@ -261,7 +285,7 @@ def test_march_live_square_suffices(monkeypatch, n, use_lls, max_shell):
                       ndhi_p, lcol, d, cfg, dr, n_)
 
     monkeypatch.setattr(ps, "_wavefront_plane_update", live_square_only)
-    got = ps.march_columns(pcfg, ndhi, pos, psc, shells)
+    got = march(shells)
     assert len(seen) == min(shells, c) and seen[-1] > 0
     assert torch.equal(got, want)
 

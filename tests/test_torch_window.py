@@ -49,11 +49,12 @@ def _tables(jcfg):
     return jtabs, ptabs
 
 
-@pytest.mark.parametrize("n,r", [(24, 4), (32, 6), (30, 4)])
+@pytest.mark.parametrize("n,r", [(24, 4), (32, 6), (30, 4), (20, 8)])
 def test_window_gather_scatter_fold_match_pallas(n, r):
     """The cases of tests/test_consume.py::test_window_dma_kernels_
     interpret, with a repeated position and a pair of windows that
-    overlap across the periodic boundary."""
+    overlap across the periodic boundary (corners at 0 and n-1), and the
+    production ladder's first rung, r = 8 (p = 17)."""
     b = 7
     p = 2 * r + 1
     rng = np.random.default_rng(3)
@@ -98,7 +99,7 @@ def test_windowed_prepass_is_the_wrap_pad():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("p", [9, 13])
+@pytest.mark.parametrize("p", [9, 13, 17])
 def test_window_march_matches_pallas(p):
     """The port's window march (plain, as the K3 wrapper takes it on the
     CPU) == the Pallas march kernel on source-centred cubes, B = 3."""
