@@ -135,22 +135,35 @@ def window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
                        pos: torch.Tensor) -> torch.Tensor:
     """acc_pad[q_i : q_i+p, ...] += rates_i for every window, IN PLACE
     (the JAX window_scatter_add donates its accumulator); overlapping and
-    repeated windows sum.  Returns acc_pad.
+    repeated windows sum, in window order.  Returns acc_pad.
 
-    On the card the kernel adds with float atomics, so the order of the
-    sums, and with it the last bits of a cell that several windows
-    cover, changes from run to run."""
+    On the card each cell is summed by the lowest-index window that
+    covers it, in window order, so the result is bitwise that of the
+    plain version and the same from run to run.  The kernel keeps a list
+    of the batch's windows in shared memory, 16 bytes each, beside the
+    terms it has in flight: a batch whose list does not fit the card's
+    per-block opt-in (some 13,500 windows on the H100) raises."""
     if acc_pad.device.type == "cpu":
         return window_scatter_add_reference(acc_pad, rates, pos)
+    _window_scatter_add(acc_pad, rates, pos)
+    LAUNCHES["window_scatter"] += 1
+    return acc_pad
+
+
+def _window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
+                        pos: torch.Tensor, defines=()) -> None:
+    """Launch K5 (from the library built with `defines`, the shipped one
+    by default) on acc_pad, in place."""
     b, p = rates.shape[0], rates.shape[1]
     _check_windows(acc_pad, pos, p)
     _check_cuda("rates", rates, torch.float32, (b, p, p, p))
     if rates.device != acc_pad.device:
         raise ValueError("rates and acc_pad must be on one device")
-    lib, fn = _entry("window_scatter", _SIGNATURES)
+    if rates.numel() >= 2**31:
+        raise ValueError(f"{b} windows of {p}^3 rates: the kernel's offsets "
+                         "into them are 32-bit")
+    lib, fn = _entry("window_scatter", _SIGNATURES, defines)
     stream = torch.cuda.current_stream(acc_pad.device).cuda_stream
     rc = fn(acc_pad.data_ptr(), acc_pad.shape[0], pos.data_ptr(), b, p,
             rates.data_ptr(), stream)
-    _check_rc(lib, rc, "window scatter-add")
-    LAUNCHES["window_scatter"] += 1
-    return acc_pad
+    _check_rc(lib, rc, f"window scatter-add ({b} windows)")

@@ -79,11 +79,95 @@ def test_window_gather_scatter_fold_match_pallas(n, r):
                                 torch.from_numpy(pos))
     assert out is acc                    # in place
     m = n + 2 * r
-    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc)[:m, :m, :m],
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(pw.fold_padded_acc(acc, n, r).numpy(),
-                               np.asarray(wp.fold_padded_acc(jacc, n, r)),
-                               rtol=1e-6, atol=1e-6)
+    # both add the windows in window order: bitwise equal
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc)[:m, :m, :m])
+    np.testing.assert_array_equal(pw.fold_padded_acc(acc, n, r).numpy(),
+                                  np.asarray(wp.fold_padded_acc(jacc, n, r)))
+
+
+def _owner_rule_scatter(acc, rates, pos):
+    """numpy emulation of K5 (csrc/window.cu scatter_slabs) on a copy of
+    acc: per (window w, x-slab i) the list of windows whose box meets the
+    slab, in index order; a block whose window has a lower-index twin at
+    its corner writes nothing; a cell belongs to the lowest-index window
+    covering it, which sums acc + rates[w] + the later covering windows'
+    terms, in index order."""
+    acc = acc.copy()
+    m = acc.shape[0]
+    b, p = rates.shape[:2]
+    ok = ((pos >= 0) & (pos <= m - p)).all(axis=1)
+    jj, kk = np.meshgrid(np.arange(p), np.arange(p), indexing="ij")
+    idx = np.arange(b)
+    for w in range(b):
+        q0, q1, q2 = (int(c) for c in pos[w])
+        listed = ok & (idx != w)
+        if not ok[w] or (listed & (idx < w)
+                         & (pos == pos[w]).all(axis=1)).any():
+            continue
+        for i in range(p):
+            x = q0 + i
+            near = np.nonzero(listed & (pos[:, 0] <= x) & (x < pos[:, 0] + p)
+                              & (np.abs(pos[:, 1] - q1) < p)
+                              & (np.abs(pos[:, 2] - q2) < p))[0]
+            mine = np.ones((p, p), bool)
+            cover = {}
+            for v in near:
+                y, z = jj + q1 - pos[v, 1], kk + q2 - pos[v, 2]
+                cover[v] = (y, z, (y >= 0) & (y < p) & (z >= 0) & (z < p))
+                if v < w:
+                    mine &= ~cover[v][2]
+            s = acc[x, q1:q1 + p, q2:q2 + p] + rates[w, i]
+            for v in near[near > w]:
+                y, z, c = cover[v]
+                c = c & mine
+                s[c] += rates[v, x - pos[v, 0], y[c], z[c]]
+            acc[x, q1 + jj[mine], q2 + kk[mine]] = s[mine]
+    return acc
+
+
+def _owner_rule_case(case):
+    rng = np.random.default_rng(17)
+    if case == "random":                 # B = 64 at p = 9, random corners
+        n, r, b = 16, 4, 64
+        pos = rng.integers(0, n, (b, 3))
+    elif case.startswith("padding"):     # 16 live windows, 240 at corner 0
+        n, r, b = 12, 2, 256
+        pos = np.zeros((b, 3), np.int64)
+        pos[:16] = rng.integers(0, n, (16, 3))
+    elif case == "touching":             # corners p-1 and p apart per axis
+        n, r = 16, 2
+        p = 2 * r + 1
+        c, d = p - 1, p                  # touching, just apart
+        pos = p + np.asarray([[0, 0, 0], [c, 0, 0], [d, 0, 0], [0, c, c],
+                              [0, d, 0], [0, 0, d], [c, c, c], [-c, c, -c],
+                              [-d, 0, 0]])
+        b = len(pos)
+    else:                                # all windows identical
+        n, r, b = 12, 3, 40
+        pos = np.tile([[4, 9, 2]], (b, 1))
+    p = 2 * r + 1
+    m = n + 2 * r
+    rates = rng.normal(size=(b, p, p, p)).astype(np.float32)
+    if case == "padding-zero":
+        rates[16:] = 0.0
+    acc = rng.normal(size=(m, m, m)).astype(np.float32)
+    return acc, rates, pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "padding-zero", "padding-rates",
+                                  "touching", "identical"])
+def test_scatter_owner_rule_is_window_order(case):
+    """K5's premise: the owner rule (a cell summed by the lowest-index
+    window covering it, in index order, with the kernel's lists and early
+    exit) gives bitwise what window_scatter_add_reference gives, on an
+    accumulator that starts nonzero, rates of both signs."""
+    acc, rates, pos = _owner_rule_case(case)
+    want = pw.window_scatter_add_reference(
+        torch.from_numpy(acc.copy()), torch.from_numpy(rates),
+        torch.from_numpy(pos)).numpy()
+    got = _owner_rule_scatter(acc, rates, pos)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.array_equal(want, acc)
 
 
 def test_windowed_prepass_is_the_wrap_pad():
