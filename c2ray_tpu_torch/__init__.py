@@ -4,8 +4,14 @@ NVIDIA H100.
 The JAX package c2ray_tpu stays the reference; this package imports none
 of it.  Its entry points run on CUDA unless the caller passes
 device="cpu", where the hand-written CUDA kernels (ops/sweep_cuda.py,
-csrc/) give way to their plain PyTorch versions.  This slice covers the
-isothermal, non-adaptive, full-radius Evolve3D.evolve3d path.
+ops/window_cuda.py, csrc/) give way to their plain PyTorch versions.  It
+runs Evolve3D.evolve3d on one device, isothermal or non-isothermal
+(photo-heating and the subcycled thermal integration; pass
+cool=ops.thermal.setup_cool(cfg)), with full-radius sweeps or the
+adaptive windowed many-source sweep, and LLS off or type 1
+(models.lls.set_lls gives its column).  X-ray sources, LLS types 2 and 3,
+compressed storage, the command-line run and its I/O, and the
+multi-device layouts are not ported yet (ROADMAP.md).
 """
 
 from .config import (CosmologyParams, RunConfig, SEDConfig,

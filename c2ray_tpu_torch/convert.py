@@ -1,7 +1,8 @@
-"""Carry the reference's inputs across: configuration and rate tables.
+"""Carry the reference's inputs across: configuration, rate tables and
+the cooling table.
 
 The system has no learned weights; what both packages must share is the
-run configuration and the rate tables.  The tests build both from these
+run configuration and the tables.  The tests build both from these
 so the JAX package and the port see identical inputs.
 """
 
@@ -14,6 +15,7 @@ import torch
 
 from .config import CosmologyParams, RunConfig, SEDConfig
 from .ops.tables import RadTables
+from .ops.thermal import CoolingTable
 
 
 def config_from_dict(d: Mapping) -> RunConfig:
@@ -40,3 +42,13 @@ def tables_from_numpy(arrays: Mapping[str, np.ndarray], device,
         t = torch.from_numpy(np.array(a, copy=True, order="C"))
         fields[name] = t.to(device=torch.device(device), dtype=dtype)
     return RadTables(**fields)
+
+
+def cooling_from_numpy(arrays: Mapping, device, dtype=None) -> CoolingTable:
+    """The port's CoolingTable from the JAX CoolingTable's fields
+    (cie_cool as a numpy array, mintemp and dtemp); dtype None keeps the
+    array's."""
+    cie = torch.from_numpy(np.array(arrays["cie_cool"], copy=True,
+                                    order="C"))
+    return CoolingTable(cie.to(device=torch.device(device), dtype=dtype),
+                        float(arrays["mintemp"]), float(arrays["dtemp"]))

@@ -8,12 +8,16 @@
 // ops/tables.py::_photoion_expsum_impl are evaluated (with the fused LLS
 // tally), the per-atom rates are summed over the batch into one grid-frame
 // phih cube, and the per-source boundary and LLS photon losses are tallied.
-// Any cubic n; isothermal; LLS off or type 1.
+// The non-isothermal build (kHeat, _kernel_consume's has_heat) also sums
+// each live pair's photo-heating rate nf * sum_k hw_k * absorb_k / vol_ph
+// * rate_scale over the batch into a second grid-frame cube, phiheat.
+// Any cubic n; LLS off or type 1.
 //
 // What bounds it on the H100 depends on the data.  A live (cell, source)
 // pair (inside max_shell, incoming column <= max_coldensh) evaluates K
 // mixture terms with one expf and one expm1f each, two more with the LLS
-// tally: 4K + 5 SFU results per pair (37 at K = 8), so with every cell
+// tally: 4K + 5 SFU results per pair (37 at K = 8; the heat build adds
+// one division and, per term, a multiply and an add), so with every cell
 // lit the SFU bounds it (~2.4 ms at 256^3 x 16, 16 results per clock per
 // SM); in practice the instruction issue does, since expm1f is a software
 // sequence of a few dozen instructions around one SFU result.  A dead
@@ -38,16 +42,21 @@
 //    cells and float rounding is monotonic, so cd - nd * fl(sqrt(3) * dr)
 //    > max_coldensh already implies cin > max_coldensh (for nd >= 0); only
 //    the other pairs pay the division and the sqrt of their path;
-//  * source cells, fluxes and the K mixture terms (a_k, w_k) are staged in
-//    shared memory once per block; the mixture loop is unrolled by 8 and
-//    the LLS tally is a template parameter, so neither costs a branch per
-//    term;
+//  * source cells, fluxes and the K mixture terms (a_k, w_k, and the heat
+//    weights hw_k in the heat build) are staged in shared memory once per
+//    block; the mixture loop is unrolled by 8, and the LLS tally and the
+//    heat are template parameters, so neither costs a branch per term and
+//    the isothermal build is the one without heat;
+//  * heat reuses each term's absorb_k, so it adds no SFU result in the
+//    loop; a live pair's heat is ((nf * heat_acc) / vol_ph) * rate_scale,
+//    in the plain version's order, summed over the sources in the same
+//    fixed order as phih (a dead pair adds exactly zero);
 //  * expf / expm1f follow _photoion_expsum_impl exactly, including the
 //    separate 80-clamp on the pre-LLS optical depth (no exponential is
 //    shared between the main and the LLS terms: that would change the
 //    rounding);
-//  * the boundary-loss divisor is 1/vol_ph as in _rate_pass; the TPU
-//    kernel's 1/(vol*ndhi)*ndhi form gives NaN at zero density;
+//  * the boundary-loss and heat divisor is 1/vol_ph as in _rate_pass; the
+//    TPU kernel's 1/(vol*ndhi)*ndhi form gives NaN at zero density;
 //  * per-source losses reduce in two deterministic stages: warp shuffles
 //    and a per-block sum into (2, B, nblocks) partials, then a second
 //    launch sums each source's partials in a fixed order in double.  The
@@ -75,7 +84,9 @@ struct Consume {
   const float* nflux;    // (B,)
   const float* mix_a;    // (K,)
   const float* mix_w;    // (K,)
+  const float* heat_w;   // (K,) heat weights (kHeat)
   float* phih;           // (n, n, n) grid frame
+  float* phiheat;        // (n, n, n) grid frame (kHeat)
   float* partial;        // (2, B, nblocks)
   int K, nsrc, n, max_shell;
   float dr, rate_scale, lcol, max_coldensh;
@@ -98,7 +109,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool kLLS>
+template <bool kLLS, bool kHeat>
 __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
   extern __shared__ float smem[];
   const int nsrc = p.nsrc, K = p.K;
@@ -106,13 +117,15 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
   float* s_nf = red + 2 * nsrc * kTileJ;         // [B]
   float* s_a = s_nf + nsrc;                      // [K]
   float* s_w = s_a + K;                          // [K]
-  int* s_pos = reinterpret_cast<int*>(s_w + K);  // [B][3]
+  float* s_hw = s_w + K;                         // [K] (kHeat)
+  int* s_pos = reinterpret_cast<int*>(s_hw + (kHeat ? K : 0));  // [B][3]
   const int tid = threadIdx.y * kTileK + threadIdx.x;
   for (int q = tid; q < 3 * nsrc; q += kThreads) s_pos[q] = p.srcpos[q];
   for (int q = tid; q < nsrc; q += kThreads) s_nf[q] = p.nflux[q];
   for (int q = tid; q < K; q += kThreads) {
     s_a[q] = p.mix_a[q];
     s_w[q] = p.mix_w[q];
+    if (kHeat) s_hw[q] = p.heat_w[q];
   }
   __syncthreads();
 
@@ -130,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
   const bool can_stop = nd >= 0.f;
   const int p_lim = min(p.max_shell, pos_max), q_lim = min(p.max_shell, c);
   const int warp = threadIdx.y, lane = threadIdx.x;
-  float acc = 0.f;
+  float acc = 0.f, hacc = 0.f;
 
   for (int src = 0; src < nsrc; ++src) {
     const int oi = wrap1(i - s_pos[3 * src] + c, n) - c;
@@ -171,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
         tau_pre = cold_pre * kSigma;
         dtau_pre = (cin - cold_pre) * kSigma;
       }
-      float phi_in = 0.f, phi_cell = 0.f, lls_acc = 0.f;
+      float phi_in = 0.f, phi_cell = 0.f, lls_acc = 0.f, heat_acc = 0.f;
 #pragma unroll 8
       for (int t = 0; t < K; ++t) {
         const float a = s_a[t], w = s_w[t];
@@ -179,6 +192,7 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
         const float absorb = att * -expm1f(-min80(a * dtau));
         phi_in = phi_in + w * att;
         phi_cell = phi_cell + w * absorb;
+        if (kHeat) heat_acc = heat_acc + s_hw[t] * absorb;
         if (kLLS) {
           const float att_pre = expf(-min80(a * tau_pre));
           lls_acc = lls_acc + (w * att_pre) * -expm1f(-min80(a * dtau_pre));
@@ -190,6 +204,7 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
       const float phi_out = phi_in - phi_cell;
       const float photo_cell = phi_cell / vol_ph;
       acc = acc + photo_cell * p.rate_scale / nd;
+      if (kHeat) hacc = hacc + ((nf * heat_acc) / vol_ph) * p.rate_scale;
       const bool bnd = oi == p_lim || oi == -q_lim || oj == p_lim ||
                        oj == -q_lim || ok == p_lim || ok == -q_lim;
       if (bnd) loss = phi_out / vol_ph;
@@ -205,7 +220,10 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
       red[(1 * nsrc + src) * kTileJ + warp] = lls;
     }
   }
-  if (valid) p.phih[cell] = acc;
+  if (valid) {
+    p.phih[cell] = acc;
+    if (kHeat) p.phiheat[cell] = hacc;
+  }
   __syncthreads();
   const int nblocks = gridDim.x * gridDim.y * gridDim.z;
   const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
@@ -244,14 +262,15 @@ int c2r_consume_nblocks(int n) {
 }
 
 // partial: scratch of 2*B*c2r_consume_nblocks(n) floats.
-// loss: (2, B) -> row 0 boundary losses, row 1 LLS losses.  Returns the
-// first CUDA error code, 0 on success.
+// loss: (2, B) -> row 0 boundary losses, row 1 LLS losses.  With use_heat
+// the heat build runs: heat_w (K,) in, phiheat (n, n, n) out; otherwise
+// both are ignored.  Returns the first CUDA error code, 0 on success.
 int c2r_consume(const float* cdo, const float* ndhi, const int* srcpos,
                 const float* nflux, const float* mix_a, const float* mix_w,
-                int K, int nsrc, int n, int max_shell, float dr,
-                float rate_scale, float lcol, int use_lls,
-                float max_coldensh, float* phih, float* partial, float* loss,
-                void* stream) {
+                const float* heat_w, int K, int nsrc, int n, int max_shell,
+                float dr, float rate_scale, float lcol, int use_lls,
+                int use_heat, float max_coldensh, float* phih,
+                float* phiheat, float* partial, float* loss, void* stream) {
   Consume p;
   p.cdo = cdo;
   p.ndhi = ndhi;
@@ -259,7 +278,9 @@ int c2r_consume(const float* cdo, const float* ndhi, const int* srcpos,
   p.nflux = nflux;
   p.mix_a = mix_a;
   p.mix_w = mix_w;
+  p.heat_w = heat_w;
   p.phih = phih;
+  p.phiheat = phiheat;
   p.partial = partial;
   p.K = K;
   p.nsrc = nsrc;
@@ -269,14 +290,19 @@ int c2r_consume(const float* cdo, const float* ndhi, const int* srcpos,
   p.rate_scale = rate_scale;
   p.lcol = lcol;
   p.max_coldensh = max_coldensh;
-  const size_t smem = (size_t)(2 * nsrc * kTileJ + nsrc + 2 * K) *
-                          sizeof(float) + (size_t)3 * nsrc * sizeof(int);
+  const size_t smem =
+      (size_t)(2 * nsrc * kTileJ + nsrc + (use_heat ? 3 : 2) * K) *
+          sizeof(float) + (size_t)3 * nsrc * sizeof(int);
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid = cell_grid(n), block(kTileK, kTileJ);
-  if (use_lls)
-    consume_cells<true><<<grid, block, smem, st>>>(p);
+  if (use_lls && use_heat)
+    consume_cells<true, true><<<grid, block, smem, st>>>(p);
+  else if (use_lls)
+    consume_cells<true, false><<<grid, block, smem, st>>>(p);
+  else if (use_heat)
+    consume_cells<false, true><<<grid, block, smem, st>>>(p);
   else
-    consume_cells<false><<<grid, block, smem, st>>>(p);
+    consume_cells<false, false><<<grid, block, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   consume_reduce<<<2 * nsrc, kThreads, 0, st>>>(

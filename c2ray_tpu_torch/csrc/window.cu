@@ -370,11 +370,36 @@ int c2r_window_gather(const float* field, int m, const int* pos, int nwin,
   return (int)cudaGetLastError();
 }
 
+// The most windows one scatter-add launch takes on the current device
+// (0 if the device cannot be queried): the block's list, 16 bytes a
+// window, its 16 KB of terms in flight and its static shared memory must
+// fit the shared memory a block may opt in to, and a window is one row of
+// the grid (y <= 65535).  The caller splits a longer batch into
+// consecutive launches in window order, which add the same sums in the
+// same order as one launch.
+int c2r_window_scatter_max_windows(void) {
+#ifdef C2R_WINDOW_SCATTER_ATOMIC
+  return 0x7fffffff;
+#else
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, scatter_slabs) != cudaSuccess)
+    return 0;
+  const long terms =
+      (long)kScatterCells * kScatterTerms * kScatterThreads * sizeof(float);
+  const long fit =
+      ((long)optin - (long)attr.sharedSizeBytes - terms) / (long)sizeof(int4);
+  return fit < 0 ? 0 : (int)(fit < 65535 ? fit : 65535);
+#endif
+}
+
 // acc (m, m, m) += each window of rates (B, p, p, p) at its corner, in
 // place, in window order.  Returns the first CUDA error code, 0 on
-// success (cudaErrorInvalidValue where the list of B windows, 16*B bytes,
-// and the 16 KB of terms in flight exceed the shared memory a block may
-// opt in to).
+// success (cudaErrorInvalidValue where B exceeds
+// c2r_window_scatter_max_windows()).
 int c2r_window_scatter_add(float* acc, int m, const int* pos, int nwin,
                            int p, const float* rates, void* stream) {
 #ifdef C2R_WINDOW_SCATTER_ATOMIC

@@ -1,16 +1,25 @@
 """Grid-wide chemistry pass, PyTorch port of c2ray_tpu/ops/chemistry.py
 (evolve0D_global + do_chemistry, evolve_point.F90:305-555), isothermal
-branch.
+and non-isothermal.
 
 Each cell iterates the analytic doric update against its time-averaged
 electron density, restarting from the step-initial state, until it
-converges; converged cells freeze.  The JAX masked lax.while_loop becomes
-a Python loop.  Testing `active.any()` costs a device-to-host sync, so it
-is tested only every `_SYNC_EVERY` iterations: once every cell is
-inactive a pass changes nothing, so the extra passes leave the outputs
-bitwise unchanged, and the iteration count is accumulated on the device
-from `active.any()` so it stays exact too.  The 400-iteration cap is
-exact.
+converges; converged cells freeze.  Non-isothermally every iteration
+also integrates the cell's temperature (ops/thermal.py) from the
+step-initial temperature under the photo-heating rate, and the next
+iteration's recombination rates follow the time-averaged temperature; as
+in the JAX twin (and the reference, whose temperature test compares a
+value with itself) only the ionization decides a cell's convergence.
+
+The JAX masked lax.while_loop becomes a Python loop.  Testing
+`active.any()` costs a device-to-host sync, so the isothermal loop tests
+it only every `_SYNC_EVERY` iterations: once every cell is inactive a
+pass changes nothing, so the extra passes leave the outputs bitwise
+unchanged, and the iteration count is accumulated on the device from
+`active.any()` so it stays exact too.  The non-isothermal loop tests
+after every iteration: its extra pass would integrate the temperature
+of the whole grid again, which costs far more than the sync.  The
+400-iteration cap is exact.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 
 from ..config import RunConfig
 from .doric import doric, electrondens, recombination_rates
+from .thermal import CoolingTable, thermal
 
 _SYNC_EVERY = 4      # inner iterations between host tests of active.any()
 
@@ -39,13 +49,20 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
                      xh1_av: torch.Tensor, phih: torch.Tensor,
                      phiheat=None, temper_current=None, temper_av=None,
                      clumping: Union[float, torch.Tensor] = 1.0,
+                     cool: Optional[CoolingTable] = None,
+                     cosmo_cool_coeff=0.0,
                      photon_loss_rate: Union[float, torch.Tensor] = 0.0
                      ) -> ChemistryResult:
-    """One global pass over the mesh (global_pass -> evolve0D_global),
-    isothermal.  Argument order follows the JAX twin."""
-    if not cfg.isothermal or phiheat is not None:
-        raise NotImplementedError(
-            "non-isothermal chemistry is not ported to c2ray_tpu_torch yet")
+    """One global pass over the mesh (global_pass -> evolve0D_global).
+    Argument order follows the JAX twin.  Non-isothermal runs need the
+    heating grid phiheat, the step-initial temper_current, the iterate
+    temper_av and the cooling table cool; cosmo_cool_coeff is the
+    adiabatic-cooling coefficient (ops/thermal.thermal)."""
+    isothermal = cfg.isothermal
+    if not isothermal and (cool is None or phiheat is None
+                           or temper_current is None or temper_av is None):
+        raise ValueError("non-isothermal chemistry needs cool, phiheat, "
+                         "temper_current and temper_av")
     if cfg.compressed_xfrac:
         raise NotImplementedError(
             "compressed_xfrac storage is not ported to c2ray_tpu_torch yet")
@@ -60,24 +77,37 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
     h1_old = torch.clamp(xh1_old, min=eps)
     h_av1 = torch.clamp(xh1_av, min=eps)
 
-    # isothermal: T is the same constant in every cell and iteration, so
-    # its rate coefficients are computed once (the same float ops as the
-    # JAX twin's per-cell full_like(T) evaluation)
-    t_av = torch.tensor(cfg.initial_temperature, dtype=dtype, device=dev)
-    rates = recombination_rates(t_av, clumping)
+    if isothermal:
+        # T is the same constant in every cell and iteration, so its rate
+        # coefficients are computed once (the same float ops as the JAX
+        # twin's per-cell full_like(T) evaluation)
+        t_av = torch.tensor(cfg.initial_temperature, dtype=dtype, device=dev)
+        rates = recombination_rates(t_av, clumping)
+        t_int = None
+    else:
+        t_cur0 = temper_current
+        t_int, t_av = temper_current, temper_av
+        rates = None
     phih_total = phih + photon_loss_rate
 
     active = torch.ones(ndens.shape, dtype=torch.bool, device=dev)
     n_iter = torch.zeros((), dtype=torch.int32, device=dev)
+    every = _SYNC_EVERY if isothermal else 1
     nit = 1
     while nit <= cfg.max_chemistry_iterations:
-        if (nit - 1) % _SYNC_EVERY == 0 and not bool(active.any()):
+        if (nit - 1) % every == 0 and not bool(active.any()):
             break
         n_iter += active.any().to(torch.int32)
         h_av0_prev = torch.clamp(1.0 - h_av1, min=eps)
         de = electrondens(ndens, h_av1)
         res = doric(cfg, dt, t_av, de, h1_old, phih_total, clumping,
                     rates=rates)
+        if not isothermal:
+            # (thermal's electron-density argument is unused, as in JAX)
+            th = thermal(cfg, cool, dt, t_cur0, None, ndens, res.xh1,
+                         res.xh1_av, h1_old, phiheat, cosmo_cool_coeff)
+            t_int = torch.where(active, th.final_temperature, t_int)
+            t_av = torch.where(active, th.average_temperature, t_av)
         converged = ((torch.abs((res.xh0_av - h_av0_prev) / res.xh0_av)
                       < mfc) | (res.xh0_av < min_atoms))
         h1 = torch.where(active, res.xh1, h1)
@@ -92,5 +122,10 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
     ion_cond = ((torch.abs(h_av0 - yh0_av_old) > mfc)
                 & (torch.abs((h_av0 - yh0_av_old) / h_av0) > mfc)
                 & (h_av0 > min_atoms))
+    if not isothermal:
+        ion_cond = ion_cond | ((torch.abs((temper_av - t_av) / t_av) > 1.0e-1)
+                               & (torch.abs(temper_av - t_av) > 100.0))
     conv_flag = ion_cond.sum().to(torch.int32)
-    return ChemistryResult(h1, h_av1, None, None, conv_flag, n_iter)
+    if isothermal:
+        return ChemistryResult(h1, h_av1, None, None, conv_flag, n_iter)
+    return ChemistryResult(h1, h_av1, t_int, t_av, conv_flag, n_iter)

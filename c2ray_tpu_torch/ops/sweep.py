@@ -374,7 +374,9 @@ def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
         phi = photoion_rates(cfg, tables, coldensh_in, cdo, vol_ph, nflux)
     live = active & ~stop
     gamma = torch.where(live, phi.photo_cell * sc.rate_scale / ndhi_c, 0.0)
-    heat = torch.zeros((), dtype=dtype, device=dev)
+    heat = (torch.where(live, phi.heat, 0.0) * sc.rate_scale
+            if not cfg.isothermal
+            else torch.zeros((), dtype=dtype, device=dev))
 
     # boundary-of-trace loss (evolve_point.F90:290-295)
     p_lim = min(max_shell, pos_max)
@@ -431,12 +433,15 @@ def check_window_positions(srcpos: np.ndarray, n: int) -> None:
 
 def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
                    pos: torch.Tensor, nf: torch.Tensor, sc: SweepScalars,
-                   radius: int, acc_pad: torch.Tensor):
+                   radius: int, acc_pad: torch.Tensor,
+                   heat_pad: Optional[torch.Tensor] = None):
     """Sweep one batch of (2r+1)^3 windows and scatter-add their rates
     into the padded accumulator, in place (the JAX windowed_batch on its
     block-DMA path).  Gather (K4), march (K3) and scatter-add (K5) are
     the kernels on a CUDA device; the rate pass is plain torch, batched
-    over the windows, on the window's own (p,p,p) mesh.
+    over the windows, on the window's own (p,p,p) mesh.  A non-isothermal
+    cfg also scatter-adds the heating rates into heat_pad (a second K5
+    call), which it requires.
 
     pos: (B, 3) int32 grid cells in [0, n); nf: (B,) fluxes (zero-flux
     entries pad a partial batch and add exactly zero).
@@ -444,6 +449,8 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
     from .sweep_cuda import compute_columns_windows
     from .window_cuda import window_gather, window_scatter_add
 
+    if not cfg.isothermal and heat_pad is None:
+        raise ValueError("a non-isothermal windowed batch needs heat_pad")
     r = int(radius)
     p = 2 * r + 1
     cfgw = cfg.replace(mesh=(p, p, p))
@@ -453,6 +460,8 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
                      None, r)
     del cdo
     window_scatter_add(acc_pad, res.phih, pos)
+    if not cfg.isothermal:
+        window_scatter_add(heat_pad, res.phiheat, pos)
     return torch.sum(res.photon_loss), torch.sum(res.lls_loss), \
         res.photon_loss
 
@@ -495,19 +504,22 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
     srcpos, nflux = _pad_batch(srcpos.to(device=dev, dtype=torch.int32),
                                nflux.to(device=dev, dtype=dtype), b)
     acc = torch.zeros(padded_acc_shape(n, r), dtype=dtype, device=dev)
+    hacc = (torch.zeros(padded_acc_shape(n, r), dtype=dtype, device=dev)
+            if not cfg.isothermal else None)
     loss = torch.zeros((), dtype=dtype, device=dev)
     lls_loss = torch.zeros((), dtype=dtype, device=dev)
     per_src = []
     for i in range(0, srcpos.shape[0], b):
         lo, ll, per_win = windowed_batch(cfg, tables, ndhi_pad,
                                          srcpos[i:i + b], nflux[i:i + b], sc,
-                                         r, acc)
+                                         r, acc, hacc)
         loss = loss + lo
         lls_loss = lls_loss + ll
         per_src.append(per_win)
-    return (fold_padded_acc(acc, n, r), torch.zeros((), dtype=dtype,
-                                                     device=dev),
-            loss, lls_loss, torch.cat(per_src)[:s])
+    heat = (fold_padded_acc(hacc, n, r) if hacc is not None
+            else torch.zeros((), dtype=dtype, device=dev))
+    return (fold_padded_acc(acc, n, r), heat, loss, lls_loss,
+            torch.cat(per_src)[:s])
 
 
 def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
@@ -530,7 +542,8 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
 
     srcpos: (S, 3) 0-based cell positions; nflux: (S,) in S_star units.
     Returns (phih, phiheat, photon_loss, lls_loss, per_source_loss) as
-    tensors on the device, without a host sync.
+    tensors on the device, without a host sync; phiheat is a 0-d zero
+    when cfg is isothermal.
     """
     from .sweep_cuda import compute_columns_grid, consume_rates
 
@@ -559,6 +572,9 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
 
     ndhi = neutral_density(cfg, ndens, xh_av1)
     phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
+    heat = (torch.zeros((n, n, n), dtype=dtype, device=dev)
+            if not cfg.isothermal
+            else torch.zeros((), dtype=dtype, device=dev))
     loss = torch.zeros((), dtype=dtype, device=dev)
     lls_loss = torch.zeros((), dtype=dtype, device=dev)
     per_src = []
@@ -566,12 +582,13 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
         pos_b = srcpos[i:i + b]
         nf_b = nflux[i:i + b]
         cdo_b = compute_columns_grid(cfg, ndhi, pos_b, sc, d_sweep)
-        ph, lo, ll = consume_rates(cfg, tables, cdo_b, ndhi, pos_b, nf_b,
-                                   sc, d_sweep)
+        ph, he, lo, ll = consume_rates(cfg, tables, cdo_b, ndhi, pos_b,
+                                       nf_b, sc, d_sweep)
         del cdo_b     # free this batch's cube before the next is made
         phih = phih + ph
+        if he is not None:
+            heat = heat + he
         loss = loss + torch.sum(lo)
         lls_loss = lls_loss + torch.sum(ll)
         per_src.append(lo)
-    return (phih, torch.zeros((), dtype=dtype, device=dev), loss, lls_loss,
-            torch.cat(per_src)[:s])
+    return phih, heat, loss, lls_loss, torch.cat(per_src)[:s]

@@ -8,7 +8,9 @@ The port's twin of c2ray_tpu/ops/sweep_pallas.py:
   compute_columns_windows  (csrc/march.cu)   <- _kernel, the same march
                                                 on source-centred windows
   consume_rates            (csrc/consume.cu) <- _kernel_consume, the fused
-                                                rate deposition
+                                                rate deposition (with its
+                                                has_heat branch in the
+                                                non-isothermal build)
 
 Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
@@ -28,7 +30,7 @@ from .sweep import (MAX_BATCH, SweepScalars, _rate_pass, march_columns,
                     march_windows, roll3)
 from .tables import RadTables, use_expsum
 
-LAUNCHES = {"march": 0, "consume": 0, "window_march": 0}
+LAUNCHES = {"march": 0, "consume": 0, "consume_heat": 0, "window_march": 0}
 
 # the most sources one launch takes (CUDA's grid z extent)
 MAX_WINDOWS = 65535
@@ -45,8 +47,8 @@ _SIGNATURES = {
     # for the per-shell form: the kernel's own choice
     "window_march_cluster": ("march", "c2r_march_windows_cluster", [_i]),
     "consume": ("consume", "c2r_consume",
-                [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f,
-                 _i, _f, _vp, _vp, _vp, _vp]),
+                [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f,
+                 _f, _i, _i, _f, _vp, _vp, _vp, _vp, _vp]),
     # blocks of the consume kernel's cell launch at mesh n: the size of
     # its loss partials, from the kernel's own launch shape
     "consume_nblocks": ("consume", "c2r_consume_nblocks", [_i]),
@@ -82,10 +84,9 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
 
 
 def _slice_options(cfg: RunConfig) -> None:
-    """The options the kernels implement: isothermal, LLS off or type 1,
-    no X-ray, mixture (expsum) rates in float32."""
-    if not cfg.isothermal:
-        raise NotImplementedError("the CUDA kernels are isothermal only")
+    """The options the kernels implement: isothermal or not (the consume
+    kernel's heat build), LLS off or type 1, no X-ray, mixture (expsum)
+    rates in float32."""
     if cfg.use_lls and cfg.type_of_lls != 1:
         raise NotImplementedError(
             f"LLS type {cfg.type_of_lls} is not ported to the CUDA kernels")
@@ -237,23 +238,29 @@ def consume_rates_reference(cfg: RunConfig, tables: RadTables,
     n = ndhi.shape[0]
     c = n // 2
     phih = torch.zeros_like(ndhi)
+    phiheat = None if cfg.isothermal else torch.zeros_like(ndhi)
     loss, lls = [], []
     for i, p in enumerate(srcpos_b.tolist()):
         ndhi_c = roll3(ndhi, [c - q for q in p])
         res = _rate_pass(cfg, tables, cdo_b[i], ndhi_c, nflux_b[i], sc, None,
                          max_shell)
-        phih = phih + roll3(res.phih, [q - c for q in p])
+        back = [q - c for q in p]
+        phih = phih + roll3(res.phih, back)
+        if phiheat is not None:
+            phiheat = phiheat + roll3(res.phiheat, back)
         loss.append(res.photon_loss)
         lls.append(res.lls_loss)
-    return phih, torch.stack(loss), torch.stack(lls)
+    return phih, phiheat, torch.stack(loss), torch.stack(lls)
 
 
 def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
                   ndhi: torch.Tensor, srcpos_b: torch.Tensor,
                   nflux_b: torch.Tensor, sc: SweepScalars, max_shell: int):
-    """Centred column cubes (B,N,N,N) -> (phih, loss_b, lls_loss_b): one
-    grid-frame per-atom rate cube summed over the batch, and per-source
-    boundary and LLS photon losses (the JAX consume_rates_pallas)."""
+    """Centred column cubes (B,N,N,N) -> (phih, phiheat, loss_b,
+    lls_loss_b): grid-frame per-atom rate and heating cubes summed over
+    the batch, and per-source boundary and LLS photon losses (the JAX
+    consume_rates_pallas).  phiheat is None when cfg is isothermal; a
+    non-isothermal cfg runs the kernel's heat build."""
     if cdo_b.device.type == "cpu":
         return consume_rates_reference(cfg, tables, cdo_b, ndhi, srcpos_b,
                                        nflux_b, sc, max_shell)
@@ -266,6 +273,10 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     k = tables.exp_a.shape[0]
     _check_cuda("tables.exp_a", tables.exp_a, torch.float32, (k,))
     _check_cuda("tables.exp_w", tables.exp_w, torch.float32, (k,))
+    heat = not cfg.isothermal
+    if heat:
+        _check_cuda("tables.heat_exp_w", tables.heat_exp_w, torch.float32,
+                    (k,))
     dev = cdo_b.device
     for name, t in (("ndhi", ndhi), ("srcpos_b", srcpos_b),
                     ("nflux_b", nflux_b), ("tables", tables.exp_a)):
@@ -277,15 +288,20 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     lib, fn = _entry("consume")
     nblocks = _entry("consume_nblocks")[1](n)
     phih = torch.empty((n, n, n), dtype=torch.float32, device=dev)
+    phiheat = (torch.empty((n, n, n), dtype=torch.float32, device=dev)
+               if heat else None)
     partial = torch.empty((2, b, nblocks), dtype=torch.float32, device=dev)
     loss = torch.empty((2, b), dtype=torch.float32, device=dev)
     use_lls = int(cfg.use_lls and cfg.type_of_lls == 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(cdo_b.data_ptr(), ndhi.data_ptr(), srcpos_b.data_ptr(),
             nflux_b.data_ptr(), tables.exp_a.data_ptr(),
-            tables.exp_w.data_ptr(), k, b, n, max_shell, sc.dr,
-            sc.rate_scale, sc.lls_coldens, use_lls, cfg.max_coldensh,
-            phih.data_ptr(), partial.data_ptr(), loss.data_ptr(), stream)
+            tables.exp_w.data_ptr(),
+            tables.heat_exp_w.data_ptr() if heat else None, k, b, n,
+            max_shell, sc.dr, sc.rate_scale, sc.lls_coldens, use_lls,
+            int(heat), cfg.max_coldensh, phih.data_ptr(),
+            phiheat.data_ptr() if heat else None, partial.data_ptr(),
+            loss.data_ptr(), stream)
     _check_rc(lib, rc, "consume")
-    LAUNCHES["consume"] += 2
-    return phih, loss[0], loss[1]
+    LAUNCHES["consume_heat" if heat else "consume"] += 2
+    return phih, phiheat, loss[0], loss[1]

@@ -449,14 +449,18 @@ def build_rad_tables(cfg: RunConfig, device=None) -> RadTables:
 # device-side lookup and rate assembly
 # ---------------------------------------------------------------------------
 
+# jnp.log10's constant: log10(e), one ulp above the float 1/np.log(10)
+LOG10_E = float(np.log10(np.e))
+
+
 def table_lookup(table: torch.Tensor, tau: torch.Tensor,
                  cfg: RunConfig) -> torch.Tensor:
     """Linear interpolation in log10(tau) table position
     (radiation_photoionrates.F90:184-228): tau floors at 1e-20 so tau=0
     reads position 1."""
     dlogtau = (cfg.maxlogtau - cfg.minlogtau) / cfg.num_tau
-    # log10 as XLA lowers it: natural log times 1/ln(10)
-    logtau = torch.log(torch.clamp(tau, min=1.0e-20)) * (1.0 / np.log(10.0))
+    # log10 as XLA lowers it: natural log times log10(e)
+    logtau = torch.log(torch.clamp(tau, min=1.0e-20)) * LOG10_E
     odpos = torch.clamp(1.0 + (logtau - cfg.minlogtau) / dlogtau,
                         0.0, float(cfg.num_tau))
     ipos = torch.floor(odpos).to(torch.int64)

@@ -24,13 +24,14 @@ launches each wrapper makes.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .sweep_cuda import _check_cuda, _check_rc, _entry
 
 LAUNCHES = {"window_gather": 0, "window_scatter": 0}
+_SCATTER_LIMIT: dict = {}     # device index -> K5's windows per launch
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -38,6 +39,8 @@ _SIGNATURES = {
                       [_vp, _i, _vp, _i, _i, _vp, _vp]),
     "window_scatter": ("window", "c2r_window_scatter_add",
                        [_vp, _i, _vp, _i, _i, _vp, _vp]),
+    # the most windows one scatter-add launch takes on the current device
+    "window_scatter_max": ("window", "c2r_window_scatter_max_windows", []),
 }
 
 
@@ -132,7 +135,8 @@ def window_scatter_add_reference(acc_pad: torch.Tensor, rates: torch.Tensor,
 
 
 def window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
-                       pos: torch.Tensor) -> torch.Tensor:
+                       pos: torch.Tensor,
+                       max_windows: Optional[int] = None) -> torch.Tensor:
     """acc_pad[q_i : q_i+p, ...] += rates_i for every window, IN PLACE
     (the JAX window_scatter_add donates its accumulator); overlapping and
     repeated windows sum, in window order.  Returns acc_pad.
@@ -140,20 +144,50 @@ def window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
     On the card each cell is summed by the lowest-index window that
     covers it, in window order, so the result is bitwise that of the
     plain version and the same from run to run.  The kernel keeps a list
-    of the batch's windows in shared memory, 16 bytes each, beside the
-    terms it has in flight: a batch whose list does not fit the card's
-    per-block opt-in (some 13,500 windows on the H100) raises."""
+    of the batch's windows in shared memory, 16 bytes each, so one launch
+    takes at most the kernel's own limit (some 13,500 windows on the
+    H100; max_windows may lower it).  A longer batch goes in consecutive
+    launches in window order (scatter_in_chunks): the same sums in the
+    same order, so the same bits."""
     if acc_pad.device.type == "cpu":
         return window_scatter_add_reference(acc_pad, rates, pos)
-    _window_scatter_add(acc_pad, rates, pos)
-    LAUNCHES["window_scatter"] += 1
+    _check_scatter(acc_pad, rates, pos)
+    limit = _scatter_limit(acc_pad.device)
+    if max_windows is not None:
+        limit = min(limit, max_windows)
+    if limit < 1:
+        raise RuntimeError(f"window scatter-add: the kernel takes {limit} "
+                           "windows per launch on this device")
+    LAUNCHES["window_scatter"] += scatter_in_chunks(
+        acc_pad, rates, pos, limit, _window_scatter_add)
     return acc_pad
 
 
-def _window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
-                        pos: torch.Tensor, defines=()) -> None:
-    """Launch K5 (from the library built with `defines`, the shipped one
-    by default) on acc_pad, in place."""
+def _scatter_limit(dev: torch.device) -> int:
+    """The kernel's windows per launch on `dev`, asked once per device."""
+    limit = _SCATTER_LIMIT.get(dev.index)
+    if limit is None:
+        with torch.cuda.device(dev):
+            limit = _entry("window_scatter_max", _SIGNATURES)[1]()
+        _SCATTER_LIMIT[dev.index] = limit
+    return limit
+
+
+def scatter_in_chunks(acc_pad: torch.Tensor, rates: torch.Tensor,
+                      pos: torch.Tensor, limit: int, launch) -> int:
+    """launch(acc_pad, rates[a:b], pos[a:b]) on consecutive chunks of at
+    most `limit` windows, in window order; -> the launches made.  Each
+    cell's sum acc + rates[w1] + rates[w2] + ... runs left to right in
+    window order, so the chunks add the same terms in the same order as
+    one call."""
+    b = rates.shape[0]
+    for lo in range(0, b, limit):
+        launch(acc_pad, rates[lo:lo + limit], pos[lo:lo + limit])
+    return -(-b // limit)
+
+
+def _check_scatter(acc_pad: torch.Tensor, rates: torch.Tensor,
+                   pos: torch.Tensor) -> None:
     b, p = rates.shape[0], rates.shape[1]
     _check_windows(acc_pad, pos, p)
     _check_cuda("rates", rates, torch.float32, (b, p, p, p))
@@ -162,6 +196,14 @@ def _window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
     if rates.numel() >= 2**31:
         raise ValueError(f"{b} windows of {p}^3 rates: the kernel's offsets "
                          "into them are 32-bit")
+
+
+def _window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
+                        pos: torch.Tensor, defines=()) -> None:
+    """Launch K5 (from the library built with `defines`, the shipped one
+    by default) on acc_pad, in place."""
+    _check_scatter(acc_pad, rates, pos)
+    b, p = rates.shape[0], rates.shape[1]
     lib, fn = _entry("window_scatter", _SIGNATURES, defines)
     stream = torch.cuda.current_stream(acc_pad.device).cuda_stream
     rc = fn(acc_pad.data_ptr(), acc_pad.shape[0], pos.data_ptr(), b, p,

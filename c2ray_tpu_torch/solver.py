@@ -1,6 +1,7 @@
 """evolve3D: the global convergence iteration over sources + chemistry,
-PyTorch port of c2ray_tpu/solver.py (evolve.F90:83-281), isothermal path,
-with the adaptive subbox-radius sweep of the many-source regime.
+PyTorch port of c2ray_tpu/solver.py (evolve.F90:83-281), isothermal and
+non-isothermal, with the adaptive subbox-radius sweep of the many-source
+regime.
 
 One call evolves the grid over a timestep dt by iterating
 [sweep all sources -> global chemistry -> photon audit] until the grid
@@ -8,7 +9,10 @@ converges.  The host drives the loop: each iteration dispatches the sweep
 and the chemistry tail, then makes ONE device-to-host copy of the packed
 scalars [conv_flag, sum_xh1, photon_loss, lls_loss, (h0, h1, rec, coll)]
 and the per-source losses.  The JAX package's device-resident
-lax.while_loop has no counterpart yet.
+lax.while_loop has no counterpart yet.  Non-isothermally the sweep also
+deposits the photo-heating rate, the chemistry integrates the
+temperature (ops/thermal.py) and the step commits the last iterate's
+temperature (set_final_temperature_point).
 
 Adaptive sweeps (evolve_source.F90:128-212): every source starts at a
 Stroemgren-estimated radius on a power-of-two ladder of rungs; rungs whose
@@ -30,6 +34,7 @@ from .ops.photonstats import GridCounts, PhotonStatistics, grid_counts
 from .ops.sweep import (check_window_positions, raytrace_all_sources,
                         sweep_scalars, windowed_batch, windowed_prepass)
 from .ops.tables import RadTables, use_expsum
+from .ops.thermal import CoolingTable
 from .state import GridState
 
 
@@ -43,7 +48,8 @@ class EvolveInfo(NamedTuple):
     per_source_loss: np.ndarray
     photon_stats: dict
     phih: Optional[torch.Tensor] = None      # last accumulated rate grid
-    phiheat: Optional[torch.Tensor] = None   # None: isothermal
+    phiheat: Optional[torch.Tensor] = None   # last heating grid; None:
+                                             # isothermal
     # adaptive sweeps: sources per radius rung in each convergence
     # iteration, as swept (a port-only field; None when not adaptive)
     rungs: Optional[list] = None
@@ -53,7 +59,6 @@ def check_supported(cfg: RunConfig, device: torch.device) -> None:
     """Raise NotImplementedError for every option outside this slice of
     the port (each is listed as work still to port in ROADMAP.md)."""
     rejected = [
-        (not cfg.isothermal, "non-isothermal runs"),
         (cfg.use_lls and cfg.type_of_lls != 1,
          f"LLS type {cfg.type_of_lls} (only LLS off or type 1)"),
         (cfg.sed.use_xray_sed, "X-ray sources"),
@@ -77,15 +82,23 @@ class Evolve3D:
     """evolve3D solver for a fixed config + tables on one device.
 
     device: None means CUDA (and raises when there is none); the tests
-    pass "cpu", where the sweep runs its plain PyTorch versions.
+    pass "cpu", where the sweep runs its plain PyTorch versions.  cool:
+    the cooling table (ops.thermal.setup_cool), which a non-isothermal
+    cfg needs.
     """
 
-    def __init__(self, cfg: RunConfig, tables: RadTables, device=None):
+    def __init__(self, cfg: RunConfig, tables: RadTables, device=None,
+                 cool: Optional[CoolingTable] = None):
         self.device = resolve_device(device)
         check_supported(cfg, self.device)
+        if not cfg.isothermal and cool is None:
+            raise ValueError("a non-isothermal Evolve3D needs a cooling "
+                             "table: cool=setup_cool(cfg)")
         self.cfg = cfg
         self.tables = RadTables(*[t.to(self.device) if t is not None
                                   else None for t in tables])
+        self.cool = (cool._replace(cie_cool=cool.cie_cool.to(self.device))
+                     if cool is not None else None)
         # per-timestep cache of padded per-bucket device source arrays,
         # rebuilt only when promotions change the assignment
         self._abucket_cache = (None, {})
@@ -169,15 +182,20 @@ class Evolve3D:
         batches through ops.sweep.windowed_batch into one padded
         accumulator per rung, folded into the rate grid at the rung's end;
         the full-cube rung in fixed-size chunks through
-        raytrace_all_sources.  No host sync: the per-source losses come
-        back as (indices, device tensor) pairs for the iteration's one
-        copy."""
+        raytrace_all_sources.  Non-isothermally the heating rates go the
+        same way into a second accumulator.  No host sync: the per-source
+        losses come back as (indices, device tensor) pairs for the
+        iteration's one copy.  -> (phih, phiheat, photon_loss, lls_loss,
+        pending); phiheat is a 0-d zero when isothermal."""
         from .ops.window_cuda import fold_padded_acc, padded_acc_shape
 
         cfg = self.cfg
         dtype, dev = cfg.torch_dtype, self.device
         n = cfg.mesh[0]
+        iso = cfg.isothermal
         phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
+        heat = torch.zeros((n, n, n) if not iso else (), dtype=dtype,
+                           device=dev)
         loss = torch.zeros((), dtype=dtype, device=dev)
         lls_loss = torch.zeros((), dtype=dtype, device=dev)
         pending = []
@@ -195,29 +213,34 @@ class Evolve3D:
                     nflux_np)
                 acc = torch.zeros(padded_acc_shape(n, radius), dtype=dtype,
                                   device=dev)
+                hacc = torch.zeros_like(acc) if not iso else None
                 for i in range(0, pos_p.shape[0], chunk):
                     lo, ll, ps = windowed_batch(
                         cfg, self.tables, ndhi_pad, pos_p[i:i + chunk],
-                        flux_p[i:i + chunk], sc, radius, acc)
+                        flux_p[i:i + chunk], sc, radius, acc, hacc)
                     loss = loss + lo
                     lls_loss = lls_loss + ll
                     parts.append(ps)
                 phih = phih + fold_padded_acc(acc, n, radius)
+                if not iso:
+                    heat = heat + fold_padded_acc(hacc, n, radius)
             else:
                 chunk = self._full_chunk_size()
                 pos_p, flux_p = self._bucket_arrays(
                     akey, b, -(-len(idx) // chunk) * chunk, idx, srcpos_np,
                     nflux_np)
                 for i in range(0, pos_p.shape[0], chunk):
-                    ph, _, lo, ll, ps = raytrace_all_sources(
+                    ph, he, lo, ll, ps = raytrace_all_sources(
                         cfg, self.tables, ndens, xh_av, pos_p[i:i + chunk],
                         flux_p[i:i + chunk], sc, max_shell=radius)
                     phih = phih + ph
+                    if not iso:
+                        heat = heat + he
                     loss = loss + lo
                     lls_loss = lls_loss + ll
                     parts.append(ps)
             pending.append((idx, torch.cat(parts)))
-        return phih, loss, lls_loss, pending
+        return phih, heat, loss, lls_loss, pending
 
     def _promote(self, per_src, nflux_np, assign):
         """Escaping photons above loss_fraction of the source's output
@@ -230,21 +253,29 @@ class Evolve3D:
                         assign + 1, assign)
 
     def _tail(self, dt, ndens, xh1, xh_int, xh_av, phih, clump, ploss, llsl,
-              psrc, with_stats: bool):
+              psrc, with_stats: bool, phiheat=None, t_cur=None, t_av=None,
+              cosmo_cool_coeff=0.0):
         """Chemistry + audit counts + convergence sum, packed with the
-        per-source losses into one vector for a single host copy."""
+        per-source losses into one vector for a single host copy.
+        Non-isothermally the chemistry also integrates the temperature
+        from t_cur under phiheat, and the audit takes its time-averaged
+        temperature.  -> (xh_int, xh_av, t_int, t_av, packed); the
+        temperatures are None when isothermal."""
         cfg = self.cfg
         chem = global_chemistry(cfg, dt, ndens, xh1, xh_int, xh_av, phih,
-                                clumping=clump)
+                                phiheat, t_cur, t_av, clump, self.cool,
+                                cosmo_cool_coeff)
         sum1 = torch.sum(chem.xh1_intermed)
         dl = sum1.dtype
         scalars = [chem.conv_flag.to(dl), sum1, ploss.to(dl), llsl.to(dl)]
         if with_stats:
-            ca = grid_counts(cfg, ndens, chem.xh1_intermed, None, clump)
-            cr = grid_counts(cfg, ndens, chem.xh1_av, None, clump)
+            ca = grid_counts(cfg, ndens, chem.xh1_intermed, chem.temper_av,
+                             clump)
+            cr = grid_counts(cfg, ndens, chem.xh1_av, chem.temper_av, clump)
             scalars += [ca.h0, ca.h1, cr.rec_rate, cr.coll_rate]
         packed = torch.cat([torch.stack(scalars), psrc.to(dl)])
-        return chem.xh1_intermed, chem.xh1_av, packed
+        return (chem.xh1_intermed, chem.xh1_av, chem.temper_intermed,
+                chem.temper_av, packed)
 
     def evolve3d(self, state: GridState, ndens_proper: torch.Tensor,
                  dr_proper: float, srcpos, nflux, dt: float,
@@ -285,17 +316,23 @@ class Evolve3D:
         srcpos_t = torch.as_tensor(srcpos_np, dtype=torch.int32, device=dev)
         nflux_t = torch.as_tensor(nflux_np, dtype=dtype, device=dev)
         sc = sweep_scalars(cfg, dr_proper, lls_coldens, rmax_cells)
+        # rounded once to the working dtype, as the JAX twin's device scalar
+        coeff = float(cfg.np_dtype(cosmo_cool_coeff))
         clump = (clumping.to(device=dev, dtype=dtype)
                  if isinstance(clumping, torch.Tensor) else clumping)
         ndens = ndens_proper.to(device=dev, dtype=dtype)
 
         if stats is not None:
-            stats.state_before(grid_counts(cfg, ndens, state.xh1, None,
-                                           clump), vol)
+            stats.state_before(grid_counts(cfg, ndens, state.xh1,
+                                           state.temper_av, clump), vol)
 
         xh1 = state.xh1
         xh_av = xh1
         xh_int = xh1
+        # temperatures (None when isothermal): the step-initial current
+        # one, and the average and end-of-step iterates
+        t_cur, t_av, t_int = (state.temper_current, state.temper_av,
+                              state.temper_intermed)
         niter = 0
         conv_flag = n_cells
         prev_sum1 = 2.0 * n_cells
@@ -311,7 +348,7 @@ class Evolve3D:
         last_report = {}
         last_stat4 = None
         total_flux = float(nflux_np.sum())
-        phih = None
+        phih = phiheat = None
         with_stats = stats is not None
         sum1 = None
 
@@ -334,11 +371,14 @@ class Evolve3D:
                     rel1 < cfg.convergence_fraction
                     and rel0 < cfg.convergence_fraction):
                 xh1 = xh_int
+                # set_final_temperature_point (temperature_module.F90:173-183)
+                t_cur = t_int
                 converged = True
                 break
             if niter > cfg.max_global_iterations:
                 # commit the best available iterate, flagged unconverged
                 xh1 = xh_int
+                t_cur = t_int
                 break
 
             prev_sum1, prev_sum0 = sum1, sum0
@@ -352,15 +392,18 @@ class Evolve3D:
                 rungs.append(np.bincount(
                     radius_assign,
                     minlength=len(self._radius_ladder())).tolist())
-                phih, ploss_d, llsl_d, pending = self._adaptive_sweep(
-                    ndens, xh_av, srcpos_np, nflux_np, sc, radius_assign)
+                phih, phiheat, ploss_d, llsl_d, pending = \
+                    self._adaptive_sweep(ndens, xh_av, srcpos_np, nflux_np,
+                                         sc, radius_assign)
                 psrc_d = torch.cat([ps for _, ps in pending])
             else:
-                phih, _, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
+                phih, phiheat, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
                     cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc)
-            xh_int, xh_av, packed = self._tail(
+            xh_int, xh_av, t_int_d, t_av_d, packed = self._tail(
                 dt, ndens, state.xh1, xh_int, xh_av, phih, clump, ploss_d,
-                llsl_d, psrc_d, with_stats)
+                llsl_d, psrc_d, with_stats, phiheat, t_cur, t_av, coeff)
+            if not cfg.isothermal:
+                t_int, t_av = t_int_d, t_av_d
 
             got = packed.cpu().numpy()      # the one blocking copy
             conv_flag = int(got[0])
@@ -390,18 +433,20 @@ class Evolve3D:
         # end-of-step statistics (evolve.F90:277-279)
         if stats is not None:
             if last_stat4 is None:
-                ca = grid_counts(cfg, ndens, xh1, None, clump)
-                cr = grid_counts(cfg, ndens, xh_av, None, clump)
+                ca = grid_counts(cfg, ndens, xh1, t_av, clump)
+                cr = grid_counts(cfg, ndens, xh_av, t_av, clump)
                 stats.calculate(ca, cr, vol, dt)
             else:
                 apply_stat4(last_stat4)
             last_report = stats.report(dt, photon_loss, lls_loss, total_flux)
             stats.update_grandtotal(dt, total_flux)
 
-        new_state = GridState(xh1=xh1)
+        new_state = GridState(xh1=xh1, temper_current=t_cur, temper_av=t_av,
+                              temper_intermed=t_int)
         info = EvolveInfo(
             niter=niter, conv_flag=conv_flag, converged=converged,
             mean_xh1=sum1 / n_cells, photon_loss=photon_loss,
             lls_loss=lls_loss, per_source_loss=per_src_loss,
-            photon_stats=last_report, phih=phih, phiheat=None, rungs=rungs)
+            photon_stats=last_report, phih=phih,
+            phiheat=phiheat if not cfg.isothermal else None, rungs=rungs)
         return new_state, info

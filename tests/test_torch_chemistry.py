@@ -108,11 +108,53 @@ def test_chemistry_sync_cadence_is_exact(check_every, monkeypatch):
     assert int(got.n_iterations) == int(ref.n_iterations)
 
 
-def test_chemistry_rejects_non_isothermal():
-    _, pcfg = _pair(isothermal=False)
-    args = [_t(a) for a in _inputs(6)]
-    with pytest.raises(NotImplementedError):
-        pc.global_chemistry(pcfg, DT, *args)
+def _thermal_inputs(seed):
+    """Temperatures (the step-initial current one and an average iterate
+    from a previous convergence iteration) and a heating grid: none,
+    weak and strong."""
+    rng = np.random.default_rng(seed)
+    shape = (N,) * 3
+    t_cur = rng.uniform(80.0, 2e4, shape)
+    t_av = t_cur * rng.uniform(0.5, 1.5, shape)
+    heat = np.where(rng.uniform(size=shape) < 0.4, 0.0,
+                    10.0 ** rng.uniform(-29, -23, shape))
+    return t_cur, t_av, heat
+
+
+@pytest.mark.parametrize("seed,max_iter", [(6, 400), (7, 5)])
+def test_global_chemistry_non_isothermal(seed, max_iter):
+    """The heat branch: thermal from the step-initial temperature in
+    every iteration, per-cell recombination rates and the temperature
+    term of conv_flag.  xh1 and both temperatures at rtol 1e-10,
+    conv_flag and the iteration count exact, against JAX at f64."""
+    from c2ray_tpu.ops.thermal import setup_cool
+    from c2ray_tpu_torch.convert import cooling_from_numpy
+
+    jcfg, pcfg = _pair(isothermal=False, max_chemistry_iterations=max_iter)
+    jcool = setup_cool(jcfg)
+    pcool = cooling_from_numpy({"cie_cool": np.asarray(jcool.cie_cool),
+                                "mintemp": jcool.mintemp,
+                                "dtemp": jcool.dtemp}, "cpu")
+    ndens, xh_old, xh_int, xh_av, phih = _inputs(seed)
+    t_cur, t_av, heat = _thermal_inputs(seed)
+    want = jc.global_chemistry(
+        jcfg, DT, *(jnp.asarray(a) for a in (ndens, xh_old, xh_int, xh_av,
+                                              phih, heat, t_cur, t_av)),
+        clumping=1.3, cool=jcool, cosmo_cool_coeff=1e-18)
+    got = pc.global_chemistry(
+        pcfg, DT, *(_t(a) for a in (ndens, xh_old, xh_int, xh_av, phih, heat,
+                                     t_cur, t_av)),
+        clumping=1.3, cool=pcool, cosmo_cool_coeff=1e-18)
+    for name in ("xh1_intermed", "xh1_av", "temper_intermed", "temper_av"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-10, atol=0, err_msg=name)
+    assert int(got.conv_flag) == int(want.conv_flag)
+    assert int(got.n_iterations) == int(want.n_iterations)
+    assert 0 < int(got.conv_flag) < N ** 3
+    with pytest.raises(ValueError):
+        pc.global_chemistry(pcfg, DT, *(_t(a) for a in (
+            ndens, xh_old, xh_int, xh_av, phih, heat, t_cur, t_av)))
 
 
 @pytest.mark.parametrize("with_temp", [False, True])

@@ -211,7 +211,8 @@ def test_radius_options_match_jax(overrides):
 def test_import_leaves_jax_out():
     code = ("import sys, c2ray_tpu_torch, c2ray_tpu_torch.convert, "
             "c2ray_tpu_torch.ops.sweep_cuda, "
-            "c2ray_tpu_torch.ops.window_cuda; "
+            "c2ray_tpu_torch.ops.window_cuda, c2ray_tpu_torch.ops.thermal, "
+            "c2ray_tpu_torch.models.lls; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'c2ray_tpu' or "
             "m.startswith('c2ray_tpu.')]; "
@@ -232,7 +233,7 @@ def test_evolve3d_device_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(isothermal=False),
+    dict(sed=port.SEDConfig(use_xray_sed=True)),
     dict(use_lls=True, type_of_lls=2),
     dict(use_lls=True, type_of_lls=3),
     dict(compressed_xfrac=True),

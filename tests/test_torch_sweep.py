@@ -141,14 +141,68 @@ def test_consume_matches_pallas_consume_f32():
     ph_w, _, loss_w, lls_w = consume_rates_pallas(
         jcfg, jtabs, jnp.asarray(cdo), ndhi, None, jnp.asarray(pos),
         jnp.asarray(nflux), None, jsc, c, interpret=True)
-    ph, loss, lls = pk.consume_rates(
+    ph, heat, loss, lls = pk.consume_rates(
         pcfg, ptabs, torch.from_numpy(cdo),
         torch.from_numpy(np.array(ndhi)), torch.from_numpy(pos),
         torch.from_numpy(nflux), psc, c)
+    assert heat is None                      # isothermal
     np.testing.assert_allclose(ph.numpy(), np.asarray(ph_w), rtol=2e-5,
                                atol=0)
     np.testing.assert_allclose(loss.numpy(), np.asarray(loss_w), rtol=2e-5)
     np.testing.assert_allclose(lls.numpy(), np.asarray(lls_w), rtol=2e-5)
+
+
+def test_consume_heat_matches_pallas_consume_f32():
+    """The heat build's plain version: phiheat == consume_rates_pallas
+    with has_heat (interpret mode) at rtol 2e-5, as tests/test_consume.py
+    holds the JAX kernel, n=32, B=2, LLS type 1; phih and the losses as
+    well.  At a zero-density cell the heat stays finite (the port divides
+    by vol_ph, not by the TPU form's 1/(vol*ndhi)*ndhi).  The fluxes
+    (10^6..10^9 S*) and the cell size (7.25e23 cm) are the main path's:
+    with tests/test_consume.py's weaker sources in 5.8e24 cm cells the
+    heating terms of far cells are float32 subnormals, which XLA's CPU
+    backend flushes to zero and torch keeps."""
+    from c2ray_tpu.ops.sweep_pallas import consume_rates_pallas
+
+    n, b = 32, 2
+    c = n // 2
+    jcfg, pcfg = _pair(n, "float32", sweep_backend="pallas", source_batch=b,
+                       isothermal=False)
+    jtabs, ptabs = _tables(jcfg)
+    jsc, psc = _scalars(jcfg, pcfg, 7.25e23, 1e16)
+    rng = np.random.default_rng(11)
+    pos = rng.integers(0, n, (b, 3)).astype(np.int32)
+    nflux = (10.0 ** rng.uniform(6, 9, b)).astype(np.float32)
+    ndens = rng.uniform(1e-4, 3e-4, (n,) * 3).astype(np.float32)
+    xh = rng.uniform(0.1, 0.9, (n,) * 3).astype(np.float32)
+    cdo = np.cumsum(rng.uniform(1e15, 2e16, (b, n, n, n)),
+                    axis=3).astype(np.float32)
+    ndhi = np.array(js.neutral_density(jcfg, jnp.asarray(ndens),
+                                       jnp.asarray(xh)))
+    ph_w, heat_w, loss_w, lls_w = consume_rates_pallas(
+        jcfg, jtabs, jnp.asarray(cdo), jnp.asarray(ndhi), None,
+        jnp.asarray(pos), jnp.asarray(nflux), None, jsc, c, interpret=True)
+    args = (torch.from_numpy(pos), torch.from_numpy(nflux), psc, c)
+    ph, heat, loss, lls = pk.consume_rates(
+        pcfg, ptabs, torch.from_numpy(cdo), torch.from_numpy(ndhi), *args)
+    assert heat.dtype == torch.float32 and heat.shape == (n, n, n)
+    assert float(heat.max()) > 0.0
+    np.testing.assert_allclose(heat.numpy(), np.asarray(heat_w), rtol=2e-5,
+                               atol=0)
+    np.testing.assert_allclose(ph.numpy(), np.asarray(ph_w), rtol=2e-5,
+                               atol=0)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(loss_w), rtol=2e-5)
+    np.testing.assert_allclose(lls.numpy(), np.asarray(lls_w), rtol=2e-5)
+    # one zero-density cell, next to the first source
+    nd0 = ndhi.copy()
+    cell = tuple((pos[0] + [1, 0, 0]) % n)
+    nd0[cell] = 0.0
+    ph0, heat0, loss0, _ = pk.consume_rates(
+        pcfg, ptabs, torch.from_numpy(cdo), torch.from_numpy(nd0), *args)
+    assert bool(torch.isfinite(heat0).all())
+    assert bool(torch.isfinite(loss0).all())
+    # no gas there absorbs nothing; its per-atom rate is 0/0
+    assert float(heat0[cell]) == 0.0 and bool(torch.isnan(ph0[cell]))
 
 
 @pytest.mark.parametrize("rate_eval", ["table", "expsum"])
@@ -298,12 +352,27 @@ def test_consume_dead_pairs_contribute_nothing(monkeypatch, use_lls, capped):
     above max_coldensh) replaced by NaN, consume_rates_reference returns
     the same phih, losses and LLS losses bitwise; a zero-density cell stays
     NaN where its pair is live."""
+    _dead_pairs_case(monkeypatch, use_lls, capped, isothermal=True)
+
+
+@pytest.mark.parametrize("use_lls", [False, True])
+@pytest.mark.parametrize("capped", [False, True])
+def test_consume_dead_pairs_add_no_heat(monkeypatch, use_lls, capped):
+    """The same premise for the heat build: dead pairs' NaN mixture
+    results leave phiheat (and phih and the losses) bitwise unchanged,
+    and phiheat stays finite at the zero-density cell."""
+    got = _dead_pairs_case(monkeypatch, use_lls, capped, isothermal=False)
+    assert bool(torch.isfinite(got[1]).all()) and float(got[1].max()) > 0
+
+
+def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal):
     from c2ray_tpu_torch.ops.tables import build_rad_tables
 
     n, b = 16, 3
     c = n // 2
     max_shell = c // 2 if capped else c
-    _, pcfg = _pair(n, "float32", use_lls=use_lls, source_batch=b)
+    _, pcfg = _pair(n, "float32", use_lls=use_lls, source_batch=b,
+                    isothermal=isothermal)
     tabs = build_rad_tables(pcfg, device="cpu")
     psc = ps.sweep_scalars(pcfg, 1e21, 1e16)
     rng = np.random.default_rng(17)
@@ -346,9 +415,14 @@ def test_consume_dead_pairs_contribute_nothing(monkeypatch, use_lls, capped):
     assert len(dead_pairs) == b and 0 < min(dead_pairs)
     assert max(dead_pairs) < n ** 3
     assert bool(torch.isnan(want[0]).any())
+    assert (want[1] is None) == isothermal
     for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
         assert torch.equal(torch.isnan(g), torch.isnan(w))
+    return got
 
 
 @pytest.mark.parametrize("dr", [1e21, 2.9e24 / 4])

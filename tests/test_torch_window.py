@@ -170,6 +170,34 @@ def test_scatter_owner_rule_is_window_order(case):
     assert not np.array_equal(want, acc)
 
 
+@pytest.mark.parametrize("case", ["random", "padding-rates", "identical"])
+@pytest.mark.parametrize("limit", [1, 5, 16, 255])
+def test_scatter_in_chunks_is_one_call(case, limit):
+    """window_scatter_add's split of a batch above the kernel's window
+    limit, with the plain version standing in for the kernel: consecutive
+    chunks in window order give bitwise one call's result, with one
+    launch per chunk."""
+    acc, rates, pos = _owner_rule_case(case)
+    b = rates.shape[0]
+    want = pw.window_scatter_add_reference(
+        torch.from_numpy(acc.copy()), torch.from_numpy(rates),
+        torch.from_numpy(pos)).numpy()
+    calls = []
+
+    def launch(acc_pad, r, q):
+        calls.append(r.shape[0])
+        assert r.is_contiguous() and q.is_contiguous()
+        pw.window_scatter_add_reference(acc_pad, r, q)
+
+    got = torch.from_numpy(acc.copy())
+    launches = pw.scatter_in_chunks(got, torch.from_numpy(rates),
+                                    torch.from_numpy(pos), limit, launch)
+    assert launches == len(calls) == -(-b // limit)
+    assert sum(calls) == b and max(calls) <= limit
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 def test_windowed_prepass_is_the_wrap_pad():
     jcfg, pcfg = _pair(12, "float64")
     rng = np.random.default_rng(4)
@@ -256,6 +284,10 @@ def _raytrace_pair(shell_arg=None, **kw):
     for i in (2, 3, 4):
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
                                    rtol=1e-12, atol=1e-12 * nflux.sum())
+    if not pcfg.isothermal:
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=1e-12, atol=0)
+        assert got[1].abs().sum() > 0
     return got
 
 
@@ -266,6 +298,14 @@ def test_raytrace_windowed_matches_jax_f64(r):
     windows overlap and wrap."""
     got = _raytrace_pair(shell_arg=r)
     assert float(got[4].abs().max()) > 0.0     # photons leave the window
+
+
+def test_raytrace_windowed_heat_matches_jax_f64():
+    """The non-isothermal windowed raytrace: the heating rates take a
+    second scatter-add into their own padded accumulator, folded as the
+    rates are; phiheat at rtol 1e-12."""
+    got = _raytrace_pair(shell_arg=3, isothermal=False)
+    assert got[1].shape == got[0].shape
 
 
 @pytest.mark.parametrize("shell_arg,kw", [
