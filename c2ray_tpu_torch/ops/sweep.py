@@ -239,18 +239,22 @@ def _commit_shell(out: torch.Tensor, planes: torch.Tensor, d: int,
 
 
 def _march(cfg: RunConfig, face_planes, cdo0: torch.Tensor, n: int,
-           sc: SweepScalars, max_shell: int) -> torch.Tensor:
+           sc: SweepScalars, max_shell: int,
+           lls_planes=None) -> torch.Tensor:
     """Shells 1..min(max_shell, N/2) of the march from the per-shell face
     planes face_planes(d) -> (B, 6, N, N); cells beyond the last shell
-    stay zero."""
+    stay zero.  lls_planes(d), where given, are the per-cell LLS columns
+    of the same face planes (grid LLS); else each cell adds the scalar
+    sc.lls_coldens."""
     c = n // 2
     b = cdo0.shape[0]
     prev = torch.zeros((b, 6, n, n), dtype=cdo0.dtype, device=cdo0.device)
     prev[:, :, c, c] = cdo0[:, None]
     out = torch.zeros((b, n, n, n), dtype=cdo0.dtype, device=cdo0.device)
     for d in range(1, min(max_shell, c) + 1):
-        prev = _wavefront_plane_update(prev, face_planes(d), sc.lls_coldens,
-                                       d, cfg, sc.dr, n)
+        lcol = lls_planes(d) if lls_planes is not None else sc.lls_coldens
+        prev = _wavefront_plane_update(prev, face_planes(d), lcol, d, cfg,
+                                       sc.dr, n)
         _commit_shell(out, prev, d, n)
     out[:, c, c, c] = cdo0
     return out
@@ -258,13 +262,16 @@ def _march(cfg: RunConfig, face_planes, cdo0: torch.Tensor, n: int,
 
 def march_columns(cfg: RunConfig, ndhi: torch.Tensor,
                   srcpos_b: torch.Tensor, sc: SweepScalars,
-                  max_shell: int) -> torch.Tensor:
+                  max_shell: int,
+                  lls: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Column march for a batch of sources from the SHARED grid-frame
     neutral density: (N,N,N) + (B,3) -> (B,N,N,N) source-centred
     coldensh_out (the layout of the JAX compute_columns_pallas_grid).
 
     Face f's plane at shell d is the grid plane at row (s_ax + sign*d)
-    mod N, re-centred on the source in its two transverse axes."""
+    mod N, re-centred on the source in its two transverse axes.  A grid
+    LLS cube lls (N,N,N) is read through the same planes
+    (LLS.F90:199-210)."""
     n = ndhi.shape[0]
     c = n // 2
     dev = ndhi.device
@@ -272,66 +279,78 @@ def march_columns(cfg: RunConfig, ndhi: torch.Tensor,
     ar = torch.arange(n, device=dev)
     g = [(ar[None, :] + pos[:, ax, None] - c) % n for ax in range(3)]
 
-    def face_planes(d):
-        planes = []
-        for ax, s, _, _ in _FACES:
-            row = ((pos[:, ax] + s * d) % n)[:, None, None]
-            if ax == 2:
-                planes.append(ndhi[g[0][:, :, None], g[1][:, None, :], row])
-            elif ax == 1:
-                planes.append(ndhi[g[0][:, :, None], row, g[2][:, None, :]])
-            else:
-                planes.append(ndhi[row, g[1][:, :, None], g[2][:, None, :]])
-        return torch.stack(planes, dim=1)
+    def planes_of(cube):
+        def face_planes(d):
+            planes = []
+            for ax, s, _, _ in _FACES:
+                row = ((pos[:, ax] + s * d) % n)[:, None, None]
+                if ax == 2:
+                    planes.append(cube[g[0][:, :, None], g[1][:, None, :],
+                                       row])
+                elif ax == 1:
+                    planes.append(cube[g[0][:, :, None], row,
+                                       g[2][:, None, :]])
+                else:
+                    planes.append(cube[row, g[1][:, :, None],
+                                       g[2][:, None, :]])
+            return torch.stack(planes, dim=1)
+        return face_planes
 
     cdo0 = ndhi[pos[:, 0], pos[:, 1], pos[:, 2]] * (0.5 * sc.dr)
-    return _march(cfg, face_planes, cdo0, n, sc, max_shell)
+    return _march(cfg, planes_of(ndhi), cdo0, n, sc, max_shell,
+                  planes_of(lls) if lls is not None else None)
 
 
 def march_windows(cfg: RunConfig, wins: torch.Tensor, sc: SweepScalars,
-                  max_shell: int) -> torch.Tensor:
+                  max_shell: int,
+                  lls_wins: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Column march on a batch of source-centred cubes: (B,p,p,p) ->
     (B,p,p,p) coldensh_out (the JAX compute_columns_pallas on windows, or
     the vmapped compute_columns_facemajor).  Face f's plane at shell d is
     the cube's plane at row c + sign*d (mod p, which wraps only for even p
-    at d = p/2)."""
+    at d = p/2); the grid LLS windows lls_wins (B,p,p,p), where given,
+    through the same planes."""
     n = wins.shape[-1]
     c = n // 2
 
-    def face_planes(d):
-        hi, lo = (c + d) % n, c - d
-        return torch.stack([wins[:, :, :, hi], wins[:, :, :, lo],
-                            wins[:, :, hi, :], wins[:, :, lo, :],
-                            wins[:, hi, :, :], wins[:, lo, :, :]], dim=1)
+    def planes_of(cube):
+        def face_planes(d):
+            hi, lo = (c + d) % n, c - d
+            return torch.stack([cube[:, :, :, hi], cube[:, :, :, lo],
+                                cube[:, :, hi, :], cube[:, :, lo, :],
+                                cube[:, hi, :, :], cube[:, lo, :, :]], dim=1)
+        return face_planes
 
     cdo0 = wins[:, c, c, c] * (0.5 * sc.dr)
-    return _march(cfg, face_planes, cdo0, n, sc, max_shell)
+    return _march(cfg, planes_of(wins), cdo0, n, sc, max_shell,
+                  planes_of(lls_wins) if lls_wins is not None else None)
 
 
 def compute_columns_facemajor(cfg: RunConfig, ndhi_c: torch.Tensor,
                               sc: SweepScalars, lls_c: Optional[torch.Tensor],
                               max_shell: int) -> torch.Tensor:
     """coldensh_out of one source on its centred cube (the JAX
-    compute_columns_facemajor): the march with the source at the centre."""
-    if lls_c is not None:
-        raise NotImplementedError(
-            "grid LLS (type 2) is not ported to c2ray_tpu_torch yet")
-    return march_windows(cfg, ndhi_c[None], sc, max_shell)[0]
+    compute_columns_facemajor): the march with the source at the centre,
+    with the centred grid LLS cube lls_c where given."""
+    return march_windows(cfg, ndhi_c[None], sc, max_shell,
+                         lls_c[None] if lls_c is not None else None)[0]
 
 
 def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
                ndhi_c: torch.Tensor, nflux, sc: SweepScalars, lls_c,
-               max_shell: int) -> SweepResult:
+               max_shell: int, nflux_xray=None) -> SweepResult:
     """Vectorized rate deposition from the completed column-density field
     of one source, all fields centred on it (evolve_point.F90:151-295):
     coldensh_in = coldensh_out - cell column, shell-volume dilution, the
     max_coldensh / R_max stops, photon-conserving rates, per-atom rates,
-    and the boundary and LLS photon-loss tallies.
+    and the boundary and LLS photon-loss tallies.  nflux_xray, where
+    given and cfg.sed.use_xray_sed, adds the X-ray sources' power-law
+    photons (radiation_photoionrates.F90:126-174).
 
     The fields may carry leading batch dimensions (a batch of windows, as
-    the JAX windowed_batch vmaps this function); nflux then broadcasts
-    against them, e.g. as (B, 1, 1, 1), and the losses come back per
-    window."""
+    the JAX windowed_batch vmaps this function); nflux (and nflux_xray)
+    then broadcast against them, e.g. as (B, 1, 1, 1), and the losses
+    come back per window."""
     n = cdo.shape[-1]
     c = n // 2
     pos_max = n - 1 - c
@@ -369,9 +388,11 @@ def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
         lcol = lls_c if lls_c is not None else sc.lls_coldens
         cold_pre = torch.clamp(coldensh_in - lcol * path, min=0.0)
         phi, lls_cell = photoion_rates_lls_fused(
-            cfg, tables, coldensh_in, cdo, vol_ph, nflux, cold_pre)
+            cfg, tables, coldensh_in, cdo, vol_ph, nflux, cold_pre,
+            nflux_xray)
     else:
-        phi = photoion_rates(cfg, tables, coldensh_in, cdo, vol_ph, nflux)
+        phi = photoion_rates(cfg, tables, coldensh_in, cdo, vol_ph, nflux,
+                             nflux_xray)
     live = active & ~stop
     gamma = torch.where(live, phi.photo_cell * sc.rate_scale / ndhi_c, 0.0)
     heat = (torch.where(live, phi.heat, 0.0) * sc.rate_scale
@@ -396,7 +417,8 @@ def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
 def sweep_single_source(cfg: RunConfig, tables: RadTables,
                         ndhi_c: torch.Tensor, nflux, sc: SweepScalars,
                         lls_c: Optional[torch.Tensor] = None,
-                        max_shell: Optional[int] = None) -> SweepResult:
+                        max_shell: Optional[int] = None,
+                        nflux_xray=None) -> SweepResult:
     """Ray-trace one source over its source-centred grid (do_source,
     evolve_source.F90:58-221): the wavefront to max_shell, then the rate
     deposition and loss tallies."""
@@ -406,7 +428,15 @@ def sweep_single_source(cfg: RunConfig, tables: RadTables,
         max_shell = cfg.max_shell if cfg.max_shell is not None else c
     max_shell = min(max_shell, min(c, cfg.max_subbox))
     cdo = compute_columns_facemajor(cfg, ndhi_c, sc, lls_c, max_shell)
-    return _rate_pass(cfg, tables, cdo, ndhi_c, nflux, sc, lls_c, max_shell)
+    return _rate_pass(cfg, tables, cdo, ndhi_c, nflux, sc, lls_c, max_shell,
+                      nflux_xray=nflux_xray)
+
+
+def wrap_pad(field: torch.Tensor, radius: int) -> torch.Tensor:
+    """The r-wide periodic pad of an (N,N,N) field, (N+2r)^3."""
+    n = field.shape[0]
+    idx = (torch.arange(n + 2 * radius, device=field.device) - radius) % n
+    return field[idx][:, idx][:, :, idx]
 
 
 def windowed_prepass(cfg: RunConfig, ndens: torch.Tensor,
@@ -414,11 +444,9 @@ def windowed_prepass(cfg: RunConfig, ndens: torch.Tensor,
     """The neutral density and its r-wide periodic pad, (N+2r)^3: the
     window of half-width r around grid cell q is then the (2r+1)^3 block
     of the padded field with corner q (the JAX windowed_prepass, without
-    the TPU lane margins)."""
-    ndhi = neutral_density(cfg, ndens, xh_av1)
-    n = ndhi.shape[0]
-    idx = (torch.arange(n + 2 * radius, device=ndhi.device) - radius) % n
-    return ndhi[idx][:, idx][:, :, idx]
+    the TPU lane margins).  A grid LLS cube takes the same pad, with
+    wrap_pad (the JAX prepass returns both)."""
+    return wrap_pad(neutral_density(cfg, ndens, xh_av1), radius)
 
 
 def check_window_positions(srcpos: np.ndarray, n: int) -> None:
@@ -434,16 +462,21 @@ def check_window_positions(srcpos: np.ndarray, n: int) -> None:
 def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
                    pos: torch.Tensor, nf: torch.Tensor, sc: SweepScalars,
                    radius: int, acc_pad: torch.Tensor,
-                   heat_pad: Optional[torch.Tensor] = None):
+                   heat_pad: Optional[torch.Tensor] = None,
+                   lls_pad: Optional[torch.Tensor] = None,
+                   nfx: Optional[torch.Tensor] = None):
     """Sweep one batch of (2r+1)^3 windows and scatter-add their rates
     into the padded accumulator, in place (the JAX windowed_batch on its
     block-DMA path).  Gather (K4), march (K3) and scatter-add (K5) are
     the kernels on a CUDA device; the rate pass is plain torch, batched
     over the windows, on the window's own (p,p,p) mesh.  A non-isothermal
     cfg also scatter-adds the heating rates into heat_pad (a second K5
-    call), which it requires.
+    call), which it requires.  With a padded grid LLS field lls_pad (the
+    wrap_pad of the LLS cube) a second K4 call gathers its windows, which
+    the march and the rate pass read; nfx, the X-ray fluxes, go to the
+    rate pass.
 
-    pos: (B, 3) int32 grid cells in [0, n); nf: (B,) fluxes (zero-flux
+    pos: (B, 3) int32 grid cells in [0, n); nf, nfx: (B,) fluxes (zero
     entries pad a partial batch and add exactly zero).
     Returns (photon_loss_sum, lls_loss_sum, per_window_loss)."""
     from .sweep_cuda import compute_columns_windows
@@ -455,9 +488,11 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
     p = 2 * r + 1
     cfgw = cfg.replace(mesh=(p, p, p))
     wins = window_gather(ndhi_pad, pos, r)
-    cdo = compute_columns_windows(cfgw, wins, sc, r)
+    lwins = window_gather(lls_pad, pos, r) if lls_pad is not None else None
+    cdo = compute_columns_windows(cfgw, wins, sc, r, lls_wins=lwins)
     res = _rate_pass(cfgw, tables, cdo, wins, nf[:, None, None, None], sc,
-                     None, r)
+                     lwins, r, nflux_xray=(nfx[:, None, None, None]
+                                           if nfx is not None else None))
     del cdo
     window_scatter_add(acc_pad, res.phih, pos)
     if not cfg.isothermal:
@@ -466,21 +501,26 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
         res.photon_loss
 
 
-def _pad_batch(srcpos: torch.Tensor, nflux: torch.Tensor, b: int):
-    """Pad the source arrays with zero-flux sources at cell 0 to a whole
-    number of batches of b."""
+def _pad_batch(srcpos: torch.Tensor, nflux: torch.Tensor, b: int,
+               nflux_xray: Optional[torch.Tensor] = None):
+    """Pad the source arrays (and the X-ray fluxes, where given) with
+    zero-flux sources at cell 0 to a whole number of batches of b."""
     s = int(srcpos.shape[0])
     pad = -(-s // b) * b - s
     if pad:
         srcpos = torch.cat([srcpos, srcpos.new_zeros((pad, 3))])
         nflux = torch.cat([nflux, nflux.new_zeros((pad,))])
-    return srcpos, nflux
+        if nflux_xray is not None:
+            nflux_xray = torch.cat([nflux_xray, nflux_xray.new_zeros((pad,))])
+    return srcpos, nflux, nflux_xray
 
 
 def raytrace_windowed(cfg: RunConfig, tables: RadTables,
                       ndens: torch.Tensor, xh_av1: torch.Tensor,
                       srcpos: torch.Tensor, nflux: torch.Tensor,
-                      sc: SweepScalars, radius: int = 8):
+                      sc: SweepScalars, radius: int = 8,
+                      lls_grid: Optional[torch.Tensor] = None,
+                      nflux_xray: Optional[torch.Tensor] = None):
     """Windowed multi-source sweep, O(r^3) per source (the JAX
     raytrace_windowed): each source is swept inside its (2r+1)^3 window
     of the periodically padded neutral density, in batches of
@@ -488,6 +528,8 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
     accumulator whose r-wide ring folds back mod N once per call.  The
     window boundary is the max_shell boundary, so the escaping-photon
     tally is the reference's subbox-face loss (evolve_point.F90:290-295).
+    A grid LLS cube lls_grid takes the same pad and its own gather; the
+    X-ray fluxes nflux_xray pad with zeros as the fluxes do.
 
     Requires 2*radius+1 <= N.  Returns (phih, phiheat, photon_loss,
     lls_loss, per_source_loss) as device tensors, without a host sync."""
@@ -499,10 +541,15 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
         raise ValueError(f"window of radius {r} does not fit in {n}^3")
     dtype, dev = ndens.dtype, ndens.device
     ndhi_pad = windowed_prepass(cfg, ndens, xh_av1, r)
+    lls_pad = (wrap_pad(lls_grid.to(device=dev, dtype=dtype), r)
+               if lls_grid is not None else None)
     s = int(srcpos.shape[0])
     b = max(1, min(cfg.source_batch, s))
-    srcpos, nflux = _pad_batch(srcpos.to(device=dev, dtype=torch.int32),
-                               nflux.to(device=dev, dtype=dtype), b)
+    srcpos, nflux, nfx = _pad_batch(
+        srcpos.to(device=dev, dtype=torch.int32),
+        nflux.to(device=dev, dtype=dtype), b,
+        nflux_xray.to(device=dev, dtype=dtype)
+        if nflux_xray is not None else None)
     acc = torch.zeros(padded_acc_shape(n, r), dtype=dtype, device=dev)
     hacc = (torch.zeros(padded_acc_shape(n, r), dtype=dtype, device=dev)
             if not cfg.isothermal else None)
@@ -510,9 +557,10 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
     lls_loss = torch.zeros((), dtype=dtype, device=dev)
     per_src = []
     for i in range(0, srcpos.shape[0], b):
-        lo, ll, per_win = windowed_batch(cfg, tables, ndhi_pad,
-                                         srcpos[i:i + b], nflux[i:i + b], sc,
-                                         r, acc, hacc)
+        lo, ll, per_win = windowed_batch(
+            cfg, tables, ndhi_pad, srcpos[i:i + b], nflux[i:i + b], sc, r,
+            acc, hacc, lls_pad=lls_pad,
+            nfx=nfx[i:i + b] if nfx is not None else None)
         loss = loss + lo
         lls_loss = lls_loss + ll
         per_src.append(per_win)
@@ -527,7 +575,8 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
                          srcpos: torch.Tensor, nflux: torch.Tensor,
                          sc: SweepScalars,
                          lls_grid: Optional[torch.Tensor] = None,
-                         max_shell: Optional[int] = None):
+                         max_shell: Optional[int] = None,
+                         nflux_xray: Optional[torch.Tensor] = None):
     """Sweep every source and accumulate the global rate grid
     (pass_all_sources, evolve.F90:444-495).
 
@@ -540,16 +589,15 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     rate deposition (sweep_cuda.consume_rates) - the hand-written kernels
     on a CUDA device, their plain versions on the CPU.
 
-    srcpos: (S, 3) 0-based cell positions; nflux: (S,) in S_star units.
+    srcpos: (S, 3) 0-based cell positions; nflux: (S,) in S_star units;
+    nflux_xray: (S,) X-ray fluxes in pl_s_star units, or None; lls_grid:
+    the (N,N,N) grid LLS columns (type 2), or None.
     Returns (phih, phiheat, photon_loss, lls_loss, per_source_loss) as
     tensors on the device, without a host sync; phiheat is a 0-d zero
     when cfg is isothermal.
     """
     from .sweep_cuda import compute_columns_grid, consume_rates
 
-    if lls_grid is not None:
-        raise NotImplementedError(
-            "grid LLS (type 2) is not ported to c2ray_tpu_torch yet")
     n = cfg.mesh[0]
     c = n // 2
     dtype, dev = ndens.dtype, ndens.device
@@ -561,16 +609,22 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     # reference's subbox rationale, evolve_source.F90:128-212)
     if cfg.window_sweep and max_shell is not None and 2 * d_sweep + 1 <= n - 1:
         return raytrace_windowed(cfg, tables, ndens, xh_av1, srcpos, nflux,
-                                 sc, radius=d_sweep)
+                                 sc, radius=d_sweep, lls_grid=lls_grid,
+                                 nflux_xray=nflux_xray)
 
     s = int(srcpos.shape[0])
     itemsize = 4 if dtype == torch.float32 else 8
     b_mem = max(1, (1 << 30) // (n * n * n * itemsize))
     b = max(1, min(cfg.source_batch, s, b_mem, MAX_BATCH))
-    srcpos, nflux = _pad_batch(srcpos.to(device=dev, dtype=torch.int32),
-                               nflux.to(device=dev, dtype=dtype), b)
+    srcpos, nflux, nfx = _pad_batch(
+        srcpos.to(device=dev, dtype=torch.int32),
+        nflux.to(device=dev, dtype=dtype), b,
+        nflux_xray.to(device=dev, dtype=dtype)
+        if nflux_xray is not None else None)
 
     ndhi = neutral_density(cfg, ndens, xh_av1)
+    lls = (lls_grid.to(device=dev, dtype=dtype) if lls_grid is not None
+           else None)
     phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
     heat = (torch.zeros((n, n, n), dtype=dtype, device=dev)
             if not cfg.isothermal
@@ -581,9 +635,10 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     for i in range(0, srcpos.shape[0], b):
         pos_b = srcpos[i:i + b]
         nf_b = nflux[i:i + b]
-        cdo_b = compute_columns_grid(cfg, ndhi, pos_b, sc, d_sweep)
-        ph, he, lo, ll = consume_rates(cfg, tables, cdo_b, ndhi, pos_b,
-                                       nf_b, sc, d_sweep)
+        cdo_b = compute_columns_grid(cfg, ndhi, pos_b, sc, d_sweep, lls=lls)
+        ph, he, lo, ll = consume_rates(
+            cfg, tables, cdo_b, ndhi, pos_b, nf_b, sc, d_sweep, lls_grid=lls,
+            nfx_b=nfx[i:i + b] if nfx is not None else None)
         del cdo_b     # free this batch's cube before the next is made
         phih = phih + ph
         if he is not None:

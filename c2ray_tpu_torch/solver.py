@@ -12,7 +12,9 @@ and the per-source losses.  The JAX package's device-resident
 lax.while_loop has no counterpart yet.  Non-isothermally the sweep also
 deposits the photo-heating rate, the chemistry integrates the
 temperature (ops/thermal.py) and the step commits the last iterate's
-temperature (set_final_temperature_point).
+temperature (set_final_temperature_point).  LLS runs off or as types 1
+(a column per cell), 2 (a column cube, lls_grid) or 3 (the R_max
+barrier), and X-ray sources add their power-law photons (nflux_xray).
 
 Adaptive sweeps (evolve_source.F90:128-212): every source starts at a
 Stroemgren-estimated radius on a power-of-two ladder of rungs; rungs whose
@@ -32,7 +34,8 @@ from .config import RunConfig, resolve_device
 from .ops.chemistry import global_chemistry
 from .ops.photonstats import GridCounts, PhotonStatistics, grid_counts
 from .ops.sweep import (check_window_positions, raytrace_all_sources,
-                        sweep_scalars, windowed_batch, windowed_prepass)
+                        sweep_scalars, windowed_batch, windowed_prepass,
+                        wrap_pad)
 from .ops.tables import RadTables, use_expsum
 from .ops.thermal import CoolingTable
 from .state import GridState
@@ -59,9 +62,8 @@ def check_supported(cfg: RunConfig, device: torch.device) -> None:
     """Raise NotImplementedError for every option outside this slice of
     the port (each is listed as work still to port in ROADMAP.md)."""
     rejected = [
-        (cfg.use_lls and cfg.type_of_lls != 1,
-         f"LLS type {cfg.type_of_lls} (only LLS off or type 1)"),
-        (cfg.sed.use_xray_sed, "X-ray sources"),
+        (cfg.use_lls and cfg.type_of_lls not in (1, 2, 3),
+         f"LLS type {cfg.type_of_lls}"),
         (cfg.compressed_xfrac, "compressed_xfrac storage"),
         (cfg.add_photon_losses, "add_photon_losses"),
         (not (cfg.mesh[0] == cfg.mesh[1] == cfg.mesh[2]), "non-cubic meshes"),
@@ -156,9 +158,11 @@ class Evolve3D:
         c = max(1, min(self.cfg.source_batch, b_mem))
         return 1 << (c.bit_length() - 1)
 
-    def _bucket_arrays(self, key, b, cap, idx, srcpos_np, nflux_np):
-        """Padded device source arrays of one rung (cached across
-        convergence iterations under the assignment key)."""
+    def _bucket_arrays(self, key, b, cap, idx, srcpos_np, nflux_np,
+                       nfx_np=None):
+        """Padded device source arrays of one rung, (positions, fluxes,
+        X-ray fluxes or None), the fluxes padded with zeros (cached
+        across convergence iterations under the assignment key)."""
         ck, store = self._abucket_cache
         if ck != key:
             store = {}
@@ -166,27 +170,36 @@ class Evolve3D:
         hit = store.get((b, cap))
         if hit is not None:
             return hit
-        pos_p = np.zeros((cap, 3), np.int32)
-        flux_p = np.zeros(cap)
-        pos_p[:len(idx)] = srcpos_np[idx]
-        flux_p[:len(idx)] = nflux_np[idx]
-        out = (torch.as_tensor(pos_p, device=self.device),
-               torch.as_tensor(flux_p, dtype=self.cfg.torch_dtype,
-                               device=self.device))
+
+        def padded(a, shape):
+            out = np.zeros(shape, a.dtype)
+            out[:len(idx)] = a[idx]
+            return out
+
+        dev, dtype = self.device, self.cfg.torch_dtype
+        out = (torch.as_tensor(padded(srcpos_np.astype(np.int32), (cap, 3)),
+                               device=dev),
+               torch.as_tensor(padded(nflux_np, cap), dtype=dtype, device=dev),
+               torch.as_tensor(padded(nfx_np, cap), dtype=dtype, device=dev)
+               if nfx_np is not None else None)
         store[(b, cap)] = out
         return out
 
-    def _adaptive_sweep(self, ndens, xh_av, srcpos_np, nflux_np, sc, assign):
+    def _adaptive_sweep(self, ndens, xh_av, srcpos_np, nflux_np, sc, assign,
+                        lls_grid=None, nfx_np=None):
         """Sweep the sources rung by rung (the JAX _adaptive_sweep without
         its injected-raytracer branches): windowed rungs in fixed-size
         batches through ops.sweep.windowed_batch into one padded
         accumulator per rung, folded into the rate grid at the rung's end;
         the full-cube rung in fixed-size chunks through
         raytrace_all_sources.  Non-isothermally the heating rates go the
-        same way into a second accumulator.  No host sync: the per-source
-        losses come back as (indices, device tensor) pairs for the
-        iteration's one copy.  -> (phih, phiheat, photon_loss, lls_loss,
-        pending); phiheat is a 0-d zero when isothermal."""
+        same way into a second accumulator.  A grid LLS cube takes each
+        windowed rung's pad and its own gathers; the X-ray fluxes ride
+        each rung's bucket arrays, padded with zeros as the fluxes are.
+        No host sync: the per-source losses come back as (indices, device
+        tensor) pairs for the iteration's one copy.  -> (phih, phiheat,
+        photon_loss, lls_loss, pending); phiheat is a 0-d zero when
+        isothermal."""
         from .ops.window_cuda import fold_padded_acc, padded_acc_shape
 
         cfg = self.cfg
@@ -207,17 +220,21 @@ class Evolve3D:
             parts = []
             if cfg.window_sweep and 2 * radius + 1 <= n - 1:
                 ndhi_pad = windowed_prepass(cfg, ndens, xh_av, radius)
+                lls_pad = (wrap_pad(lls_grid, radius)
+                           if lls_grid is not None else None)
                 chunk = self._window_chunk_size(radius)
-                pos_p, flux_p = self._bucket_arrays(
+                pos_p, flux_p, fx_p = self._bucket_arrays(
                     akey, b, -(-len(idx) // chunk) * chunk, idx, srcpos_np,
-                    nflux_np)
+                    nflux_np, nfx_np)
                 acc = torch.zeros(padded_acc_shape(n, radius), dtype=dtype,
                                   device=dev)
                 hacc = torch.zeros_like(acc) if not iso else None
                 for i in range(0, pos_p.shape[0], chunk):
                     lo, ll, ps = windowed_batch(
                         cfg, self.tables, ndhi_pad, pos_p[i:i + chunk],
-                        flux_p[i:i + chunk], sc, radius, acc, hacc)
+                        flux_p[i:i + chunk], sc, radius, acc, hacc,
+                        lls_pad=lls_pad,
+                        nfx=fx_p[i:i + chunk] if fx_p is not None else None)
                     loss = loss + lo
                     lls_loss = lls_loss + ll
                     parts.append(ps)
@@ -226,13 +243,16 @@ class Evolve3D:
                     heat = heat + fold_padded_acc(hacc, n, radius)
             else:
                 chunk = self._full_chunk_size()
-                pos_p, flux_p = self._bucket_arrays(
+                pos_p, flux_p, fx_p = self._bucket_arrays(
                     akey, b, -(-len(idx) // chunk) * chunk, idx, srcpos_np,
-                    nflux_np)
+                    nflux_np, nfx_np)
                 for i in range(0, pos_p.shape[0], chunk):
                     ph, he, lo, ll, ps = raytrace_all_sources(
                         cfg, self.tables, ndens, xh_av, pos_p[i:i + chunk],
-                        flux_p[i:i + chunk], sc, max_shell=radius)
+                        flux_p[i:i + chunk], sc, lls_grid=lls_grid,
+                        max_shell=radius,
+                        nflux_xray=(fx_p[i:i + chunk] if fx_p is not None
+                                    else None))
                     phih = phih + ph
                     if not iso:
                         heat = heat + he
@@ -286,11 +306,13 @@ class Evolve3D:
                  dumper=None, iter_restart: Optional[dict] = None,
                  nflux_xray=None, verbose: bool = False, clocks=None):
         """One global timestep (evolve3D, evolve.F90:83-281).  The
-        signature is the JAX twin's; lls_grid, nflux_xray, dumper,
-        iter_restart and clocks accept only None in this slice."""
+        signature is the JAX twin's; dumper, iter_restart and clocks
+        accept only None in this slice.  lls_grid: the (N,N,N) LLS column
+        cube of type 2 (models.lls.set_lls(...).grid); rmax_cells: type
+        3's barrier radius; nflux_xray: (S,) X-ray fluxes in pl_s_star
+        units, used when cfg.sed.use_xray_sed."""
         cfg = self.cfg
-        for val, what in ((lls_grid, "lls_grid"), (nflux_xray, "nflux_xray"),
-                          (dumper, "dumper"), (iter_restart, "iter_restart"),
+        for val, what in ((dumper, "dumper"), (iter_restart, "iter_restart"),
                           (clocks, "clocks")):
             if val is not None:
                 raise NotImplementedError(
@@ -315,6 +337,13 @@ class Evolve3D:
             self._abucket_cache = (None, {})
         srcpos_t = torch.as_tensor(srcpos_np, dtype=torch.int32, device=dev)
         nflux_t = torch.as_tensor(nflux_np, dtype=dtype, device=dev)
+        use_xray = cfg.sed.use_xray_sed and nflux_xray is not None
+        nfx_np = (np.asarray(nflux_xray, np.float64).reshape(-1)
+                  if use_xray else None)
+        nfx_t = (torch.as_tensor(nfx_np, dtype=dtype, device=dev)
+                 if use_xray else None)
+        lls_t = (torch.as_tensor(lls_grid, dtype=dtype, device=dev)
+                 if lls_grid is not None else None)
         sc = sweep_scalars(cfg, dr_proper, lls_coldens, rmax_cells)
         # rounded once to the working dtype, as the JAX twin's device scalar
         coeff = float(cfg.np_dtype(cosmo_cool_coeff))
@@ -347,6 +376,9 @@ class Evolve3D:
         converged = False
         last_report = {}
         last_stat4 = None
+        # the initial radii, the promotions and total_flux read the stellar
+        # fluxes alone, as in the JAX twin (X-ray photons are not counted
+        # there): keep it so
         total_flux = float(nflux_np.sum())
         phih = phiheat = None
         with_stats = stats is not None
@@ -394,11 +426,12 @@ class Evolve3D:
                     minlength=len(self._radius_ladder())).tolist())
                 phih, phiheat, ploss_d, llsl_d, pending = \
                     self._adaptive_sweep(ndens, xh_av, srcpos_np, nflux_np,
-                                         sc, radius_assign)
+                                         sc, radius_assign, lls_t, nfx_np)
                 psrc_d = torch.cat([ps for _, ps in pending])
             else:
                 phih, phiheat, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
-                    cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc)
+                    cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc,
+                    lls_grid=lls_t, nflux_xray=nfx_t)
             xh_int, xh_av, t_int_d, t_av_d, packed = self._tail(
                 dt, ndens, state.xh1, xh_int, xh_av, phih, clump, ploss_d,
                 llsl_d, psrc_d, with_stats, phiheat, t_cur, t_av, coeff)

@@ -233,9 +233,6 @@ def test_evolve3d_device_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(sed=port.SEDConfig(use_xray_sed=True)),
-    dict(use_lls=True, type_of_lls=2),
-    dict(use_lls=True, type_of_lls=3),
     dict(compressed_xfrac=True),
     dict(add_photon_losses=True),
 ])
@@ -256,7 +253,6 @@ def test_rejected_call_arguments_raise():
     state = port.initial_state(cfg, device="cpu")
     nd = torch.full((8,) * 3, NH, dtype=torch.float64)
     src, flux = np.array([[4, 4, 4]]), np.array([1.0])
-    for kw in (dict(lls_grid=nd), dict(nflux_xray=flux), dict(dumper=1),
-               dict(iter_restart={}), dict(clocks=1)):
+    for kw in (dict(dumper=1), dict(iter_restart={}), dict(clocks=1)):
         with pytest.raises(NotImplementedError):
             solver.evolve3d(state, nd, 1e22, src, flux, DT, **kw)

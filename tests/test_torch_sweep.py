@@ -365,16 +365,28 @@ def test_consume_dead_pairs_add_no_heat(monkeypatch, use_lls, capped):
     assert bool(torch.isfinite(got[1]).all()) and float(got[1].max()) > 0
 
 
-def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal):
+@pytest.mark.parametrize("isothermal", [True, False])
+def test_consume_pairs_beyond_rmax_add_nothing(monkeypatch, isothermal):
+    """The premise of K2's R_max test in its dead-pair skip (LLS type 3):
+    with the mixture results of every pair beyond the barrier (and every
+    other dead pair) replaced by NaN, consume_rates_reference returns the
+    same phih, phiheat and losses bitwise; some pairs are dead by the
+    barrier alone."""
+    _dead_pairs_case(monkeypatch, True, False, isothermal, rmax=5.0)
+
+
+def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal, rmax=None):
     from c2ray_tpu_torch.ops.tables import build_rad_tables
 
     n, b = 16, 3
     c = n // 2
     max_shell = c // 2 if capped else c
     _, pcfg = _pair(n, "float32", use_lls=use_lls, source_batch=b,
-                    isothermal=isothermal)
+                    isothermal=isothermal,
+                    type_of_lls=1 if rmax is None else 3)
     tabs = build_rad_tables(pcfg, device="cpu")
-    psc = ps.sweep_scalars(pcfg, 1e21, 1e16)
+    psc = ps.sweep_scalars(pcfg, 1e21, 1e16,
+                           rmax if rmax is not None else 0.0)
     rng = np.random.default_rng(17)
     ndhi = _field(n, np.float32, seed=3)
     # columns climb past max_coldensh (2e19) along the fast axis
@@ -394,11 +406,18 @@ def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal):
     o = (torch.arange(n) - c).abs()
     cheb = torch.maximum(torch.maximum(o[:, None, None], o[None, :, None]),
                          o[None, None, :])
-    dead_pairs = []
+    of = o.to(torch.float32)
+    dist2 = (of[:, None, None] ** 2 + of[None, :, None] ** 2
+             + of[None, None, :] ** 2)
+    dead_pairs, by_rmax = [], []
 
     def poison(fn):
         def wrapped(cfg, tables, coldensh_in, *rest):
             dead = (cheb > max_shell) | (coldensh_in > cfg.max_coldensh)
+            if rmax is not None:
+                beyond = dist2 > psc.rmax2_cells
+                by_rmax.append(int((beyond & ~dead).sum()))
+                dead = dead | beyond
             dead_pairs.append(int(dead.sum()))
             out = fn(cfg, tables, coldensh_in, *rest)
             nan = lambda x: torch.where(dead, float("nan"), x)  # noqa: E731
@@ -414,6 +433,8 @@ def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal):
     got = pk.consume_rates_reference(*args)
     assert len(dead_pairs) == b and 0 < min(dead_pairs)
     assert max(dead_pairs) < n ** 3
+    if rmax is not None:
+        assert min(by_rmax) > 0
     assert bool(torch.isnan(want[0]).any())
     assert (want[1] is None) == isothermal
     for g, w in zip(got, want):
