@@ -63,19 +63,30 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
                            or temper_current is None or temper_av is None):
         raise ValueError("non-isothermal chemistry needs cool, phiheat, "
                          "temper_current and temper_av")
-    if cfg.compressed_xfrac:
-        raise NotImplementedError(
-            "compressed_xfrac storage is not ported to c2ray_tpu_torch yet")
+    compressed = cfg.compressed_xfrac
     dtype, dev = ndens.dtype, ndens.device
     eps = cfg.epsilon
     mfc = cfg.minimum_fractional_change
     min_atoms = cfg.minimum_fraction_of_atoms
     dt = torch.tensor(dt, dtype=dtype, device=dev)
 
-    # initial local states (evolve_point.F90:341-354)
-    h1 = torch.clamp(xh1_intermed, min=eps)
-    h1_old = torch.clamp(xh1_old, min=eps)
-    h_av1 = torch.clamp(xh1_av, min=eps)
+    # initial local states (evolve_point.F90:341-354); under compressed
+    # storage the x inputs are signed min-fraction tensors and both sides
+    # decode tail-exactly, and the neutral side is carried natively
+    if compressed:
+        from ..state import compress_xh, xh0_of, xh1_of
+        h1 = torch.clamp(xh1_of(xh1_intermed), min=eps)
+        h0 = torch.clamp(xh0_of(xh1_intermed), min=eps)
+        h1_old = torch.clamp(xh1_of(xh1_old), min=eps)
+        h0_old = torch.clamp(xh0_of(xh1_old), min=eps)
+        h_av1 = torch.clamp(xh1_of(xh1_av), min=eps)
+        h_av0 = torch.clamp(xh0_of(xh1_av), min=eps)
+        h_av0_start = h_av0
+    else:
+        h1 = torch.clamp(xh1_intermed, min=eps)
+        h1_old = torch.clamp(xh1_old, min=eps)
+        h_av1 = torch.clamp(xh1_av, min=eps)
+        h0_old = None
 
     if isothermal:
         # T is the same constant in every cell and iteration, so its rate
@@ -98,10 +109,11 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
         if (nit - 1) % every == 0 and not bool(active.any()):
             break
         n_iter += active.any().to(torch.int32)
-        h_av0_prev = torch.clamp(1.0 - h_av1, min=eps)
+        h_av0_prev = h_av0 if compressed else torch.clamp(1.0 - h_av1,
+                                                          min=eps)
         de = electrondens(ndens, h_av1)
         res = doric(cfg, dt, t_av, de, h1_old, phih_total, clumping,
-                    rates=rates)
+                    rates=rates, xh0_old=h0_old)
         if not isothermal:
             # (thermal's electron-density argument is unused, as in JAX)
             th = thermal(cfg, cool, dt, t_cur0, None, ndens, res.xh1,
@@ -112,20 +124,30 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
                       < mfc) | (res.xh0_av < min_atoms))
         h1 = torch.where(active, res.xh1, h1)
         h_av1 = torch.where(active, res.xh1_av, h_av1)
+        if compressed:
+            h0 = torch.where(active, res.xh0, h0)
+            h_av0 = torch.where(active, res.xh0_av, h_av0)
         active = active & ~converged
         nit += 1
 
     # outer non-convergence count (evolve_point.F90:384-391)
-    yh1_av_old = torch.clamp(xh1_av, min=eps)
-    yh0_av_old = 1.0 - yh1_av_old
-    h_av0 = torch.clamp(1.0 - h_av1, min=eps)
-    ion_cond = ((torch.abs(h_av0 - yh0_av_old) > mfc)
-                & (torch.abs((h_av0 - yh0_av_old) / h_av0) > mfc)
-                & (h_av0 > min_atoms))
+    if compressed:
+        yh0_av_old = h_av0_start
+        h_av0_end = h_av0
+    else:
+        yh1_av_old = torch.clamp(xh1_av, min=eps)
+        yh0_av_old = 1.0 - yh1_av_old
+        h_av0_end = torch.clamp(1.0 - h_av1, min=eps)
+    ion_cond = ((torch.abs(h_av0_end - yh0_av_old) > mfc)
+                & (torch.abs((h_av0_end - yh0_av_old) / h_av0_end) > mfc)
+                & (h_av0_end > min_atoms))
     if not isothermal:
         ion_cond = ion_cond | ((torch.abs((temper_av - t_av) / t_av) > 1.0e-1)
                                & (torch.abs(temper_av - t_av) > 100.0))
     conv_flag = ion_cond.sum().to(torch.int32)
+    if compressed:
+        h1 = compress_xh(h1, h0)
+        h_av1 = compress_xh(h_av1, h_av0)
     if isothermal:
         return ChemistryResult(h1, h_av1, None, None, conv_flag, n_iter)
     return ChemistryResult(h1, h_av1, t_int, t_av, conv_flag, n_iter)

@@ -38,7 +38,7 @@ def recombination_rates(temperature, clumping=1.0):
 
 
 def doric(cfg: RunConfig, dt, temperature, rhe, xh1_old, phih,
-          clumping=1.0, rates=None) -> DoricResult:
+          clumping=1.0, rates=None, xh0_old=None) -> DoricResult:
     """Time-dependent H ionization solution over a step dt
     (doric.f90:96-124):
 
@@ -48,7 +48,9 @@ def doric(cfg: RunConfig, dt, temperature, rhe, xh1_old, phih,
 
     temperature is a tensor (a 0-d one broadcasts).  rates: optional
     precomputed recombination_rates(temperature, clumping), which the
-    isothermal chemistry loop hoists out of its iterations.
+    isothermal chemistry loop hoists out of its iterations.  xh0_old: the
+    exact step-initial neutral fraction (compressed storage); the neutral
+    side then relaxes from it natively, never through 1 - x_HII.
     """
     eps = cfg.epsilon
     brech0, acolh0 = (rates if rates is not None
@@ -61,7 +63,9 @@ def doric(cfg: RunConfig, dt, temperature, rhe, xh1_old, phih,
     deltht = delth * dt
     ee = torch.exp(-deltht)
 
-    xh0_old = 1.0 - xh1_old
+    native_xh0 = xh0_old is not None
+    if not native_xh0:
+        xh0_old = 1.0 - xh1_old
     xh1 = (xh1_old - eqxfh1) * ee + eqxfh1
     xh0 = (xh0_old - eqxfh0) * ee + eqxfh0
 
@@ -74,5 +78,10 @@ def doric(cfg: RunConfig, dt, temperature, rhe, xh1_old, phih,
     avg_factor = torch.where(deltht < 1.0e-8, torch.ones_like(deltht),
                              -torch.expm1(-deltht) / deltht)
     xh1_av = eqxfh1 + (xh1_old - eqxfh1) * avg_factor
-    xh0_av = torch.clamp(1.0 - xh1_av, min=eps)   # doric.f90:128
+    if native_xh0:
+        # the same relaxation applied to the neutral side directly
+        xh0_av = torch.clamp(eqxfh0 + (xh0_old - eqxfh0) * avg_factor,
+                             min=eps)
+    else:
+        xh0_av = torch.clamp(1.0 - xh1_av, min=eps)   # doric.f90:128
     return DoricResult(xh1, xh0, xh1_av, xh0_av)

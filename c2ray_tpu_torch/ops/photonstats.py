@@ -28,11 +28,20 @@ class GridCounts(NamedTuple):
 
 
 def grid_counts(cfg: RunConfig, ndens, xh1, temper_av=None,
-                clumping: Union[float, torch.Tensor] = 1.0) -> GridCounts:
+                clumping: Union[float, torch.Tensor] = 1.0,
+                compressed: bool = False) -> GridCounts:
     """Neutral/ionized atom counts and total recombination/collision
-    rates (photonstatistics.F90:104-185), with doric's rate formulas."""
-    x1 = xh1
-    x0 = 1.0 - xh1
+    rates (photonstatistics.F90:104-185), with doric's rate formulas.
+    compressed: xh1 is the signed compressed form (state.compress_xh),
+    both sides decoded natively so the neutral tail keeps its stored
+    precision."""
+    if compressed:
+        from ..state import xh0_of, xh1_of
+        x1 = xh1_of(xh1)
+        x0 = xh0_of(xh1)
+    else:
+        x1 = xh1
+        x0 = 1.0 - xh1
     h0 = torch.sum(ndens * x0)
     h1 = torch.sum(ndens * x1)
     if temper_av is None:

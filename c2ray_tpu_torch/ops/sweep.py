@@ -92,11 +92,14 @@ def roll3(a: torch.Tensor, shifts) -> torch.Tensor:
 def neutral_density(cfg: RunConfig, ndens: torch.Tensor,
                     xh_av1: torch.Tensor) -> torch.Tensor:
     """ndhi = max(1 - max(x_av, eps), eps) * n, the epsilon-clamped
-    time-averaged neutral density (evolve_point.F90:137-142)."""
-    if cfg.compressed_xfrac:
-        raise NotImplementedError(
-            "compressed_xfrac storage is not ported to c2ray_tpu_torch yet")
+    time-averaged neutral density (evolve_point.F90:137-142).  Under
+    compressed storage xh_av1 is the signed min-fraction form and the
+    neutral side decodes tail-exactly."""
     eps = cfg.epsilon
+    if cfg.compressed_xfrac:
+        xh0 = torch.where(xh_av1 >= 0,
+                          1.0 - torch.clamp(xh_av1, min=eps), -xh_av1)
+        return torch.clamp(xh0, min=eps) * ndens
     return torch.clamp(1.0 - torch.clamp(xh_av1, min=eps), min=eps) * ndens
 
 

@@ -15,6 +15,10 @@ temperature (ops/thermal.py) and the step commits the last iterate's
 temperature (set_final_temperature_point).  LLS runs off or as types 1
 (a column per cell), 2 (a column cube, lls_grid) or 3 (the R_max
 barrier), and X-ray sources add their power-law photons (nflux_xray).
+Under compressed storage (cfg.compressed_xfrac) the iterates hold the
+signed min-fraction form; with cfg.add_photon_losses the boundary losses
+come back as a per-cell rate.  A dumper writes the double-buffered
+iteration dumps, and iter_restart resumes from one (start_from_dump).
 
 Adaptive sweeps (evolve_source.F90:128-212): every source starts at a
 Stroemgren-estimated radius on a power-of-two ladder of rungs; rungs whose
@@ -33,12 +37,12 @@ import torch
 from .config import RunConfig, resolve_device
 from .ops.chemistry import global_chemistry
 from .ops.photonstats import GridCounts, PhotonStatistics, grid_counts
-from .ops.sweep import (check_window_positions, raytrace_all_sources,
-                        sweep_scalars, windowed_batch, windowed_prepass,
-                        wrap_pad)
-from .ops.tables import RadTables, use_expsum
+from .ops.sweep import (check_window_positions, neutral_density,
+                        raytrace_all_sources, sweep_scalars, windowed_batch,
+                        windowed_prepass, wrap_pad)
+from .ops.tables import RadTables, photoion_rates, use_expsum
 from .ops.thermal import CoolingTable
-from .state import GridState
+from .state import GridState, xh1_of
 
 
 class EvolveInfo(NamedTuple):
@@ -64,8 +68,7 @@ def check_supported(cfg: RunConfig, device: torch.device) -> None:
     rejected = [
         (cfg.use_lls and cfg.type_of_lls not in (1, 2, 3),
          f"LLS type {cfg.type_of_lls}"),
-        (cfg.compressed_xfrac, "compressed_xfrac storage"),
-        (cfg.add_photon_losses, "add_photon_losses"),
+        # the JAX package asserts a cubic mesh too (ops/sweep.py:812)
         (not (cfg.mesh[0] == cfg.mesh[1] == cfg.mesh[2]), "non-cubic meshes"),
         (cfg.dtype not in ("float32", "float64"), f"dtype {cfg.dtype}"),
         (device.type == "cuda" and cfg.dtype != "float32",
@@ -272,26 +275,50 @@ class Evolve3D:
         return np.where(leaked & (assign < len(ladder) - 1),
                         assign + 1, assign)
 
+    def _dense_x1(self, x):
+        """The ionized fraction of an iterate (decodes compressed storage)."""
+        return xh1_of(x) if self.cfg.compressed_xfrac else x
+
+    def _loss_rate(self, ndens, xh_av, sc, ploss):
+        """Boundary losses redistributed as a per-cell per-atom rate, each
+        cell absorbing its share through its own column (the reference's
+        dormant add_photon_losses block, evolve_point.F90:497-506, with
+        photon_loss = photon_loss_all/N^3, evolve.F90:525); zero when
+        nothing was lost.  The JAX twin's _lossrate_body."""
+        cfg = self.cfg
+        ndhi = neutral_density(cfg, ndens, xh_av)
+        coldens_cell = ndhi * sc.dr
+        phi = photoion_rates(cfg, self.tables, torch.zeros_like(coldens_cell),
+                             coldens_cell, torch.ones_like(coldens_cell),
+                             ploss / cfg.n_cells)
+        rate = phi.photo_cell * sc.rate_scale / ndhi
+        return torch.where(ploss > 0.0, rate, torch.zeros_like(rate))
+
     def _tail(self, dt, ndens, xh1, xh_int, xh_av, phih, clump, ploss, llsl,
               psrc, with_stats: bool, phiheat=None, t_cur=None, t_av=None,
-              cosmo_cool_coeff=0.0):
-        """Chemistry + audit counts + convergence sum, packed with the
-        per-source losses into one vector for a single host copy.
-        Non-isothermally the chemistry also integrates the temperature
-        from t_cur under phiheat, and the audit takes its time-averaged
-        temperature.  -> (xh_int, xh_av, t_int, t_av, packed); the
-        temperatures are None when isothermal."""
+              cosmo_cool_coeff=0.0, sc=None):
+        """Loss redistribution (add_photon_losses) + chemistry + audit
+        counts + convergence sum, packed with the per-source losses into
+        one vector for a single host copy.  Non-isothermally the
+        chemistry also integrates the temperature from t_cur under
+        phiheat, and the audit takes its time-averaged temperature.
+        -> (xh_int, xh_av, t_int, t_av, packed); the temperatures are None
+        when isothermal."""
         cfg = self.cfg
+        loss_rate = (self._loss_rate(ndens, xh_av, sc, ploss)
+                     if cfg.add_photon_losses else 0.0)
         chem = global_chemistry(cfg, dt, ndens, xh1, xh_int, xh_av, phih,
                                 phiheat, t_cur, t_av, clump, self.cool,
-                                cosmo_cool_coeff)
-        sum1 = torch.sum(chem.xh1_intermed)
+                                cosmo_cool_coeff, photon_loss_rate=loss_rate)
+        sum1 = torch.sum(self._dense_x1(chem.xh1_intermed))
         dl = sum1.dtype
         scalars = [chem.conv_flag.to(dl), sum1, ploss.to(dl), llsl.to(dl)]
         if with_stats:
+            comp = cfg.compressed_xfrac
             ca = grid_counts(cfg, ndens, chem.xh1_intermed, chem.temper_av,
-                             clump)
-            cr = grid_counts(cfg, ndens, chem.xh1_av, chem.temper_av, clump)
+                             clump, compressed=comp)
+            cr = grid_counts(cfg, ndens, chem.xh1_av, chem.temper_av, clump,
+                             compressed=comp)
             scalars += [ca.h0, ca.h1, cr.rec_rate, cr.coll_rate]
         packed = torch.cat([torch.stack(scalars), psrc.to(dl)])
         return (chem.xh1_intermed, chem.xh1_av, chem.temper_intermed,
@@ -305,18 +332,19 @@ class Evolve3D:
                  stats: Optional[PhotonStatistics] = None,
                  dumper=None, iter_restart: Optional[dict] = None,
                  nflux_xray=None, verbose: bool = False, clocks=None):
-        """One global timestep (evolve3D, evolve.F90:83-281).  The
-        signature is the JAX twin's; dumper, iter_restart and clocks
-        accept only None in this slice.  lls_grid: the (N,N,N) LLS column
+        """One global timestep (evolve3D, evolve.F90:83-281); the
+        signature is the JAX twin's.  lls_grid: the (N,N,N) LLS column
         cube of type 2 (models.lls.set_lls(...).grid); rmax_cells: type
         3's barrier radius; nflux_xray: (S,) X-ray fluxes in pl_s_star
-        units, used when cfg.sed.use_xray_sed."""
+        units, used when cfg.sed.use_xray_sed.  dumper: a
+        utils.checkpoint.IterDumper, offered every iteration's
+        post-sweep, pre-chemistry iterates and rate grids
+        (evolve.F90:253-266); iter_restart: a dict from IterDumper.load,
+        whose pending chemistry pass runs first, with no re-sweep
+        (start_from_dump, evolve.F90:154-158, 328-426); clocks: a
+        utils.clocks.Clocks, stamped after every iteration
+        (evolve.F90:272-273)."""
         cfg = self.cfg
-        for val, what in ((dumper, "dumper"), (iter_restart, "iter_restart"),
-                          (clocks, "clocks")):
-            if val is not None:
-                raise NotImplementedError(
-                    f"{what} is not ported to c2ray_tpu_torch yet")
         dev = self.device
         dtype = cfg.torch_dtype
         n_cells = cfg.n_cells
@@ -347,22 +375,39 @@ class Evolve3D:
         sc = sweep_scalars(cfg, dr_proper, lls_coldens, rmax_cells)
         # rounded once to the working dtype, as the JAX twin's device scalar
         coeff = float(cfg.np_dtype(cosmo_cool_coeff))
-        clump = (clumping.to(device=dev, dtype=dtype)
-                 if isinstance(clumping, torch.Tensor) else clumping)
+        clump = (torch.as_tensor(clumping, device=dev).to(dtype)
+                 if isinstance(clumping, (torch.Tensor, np.ndarray))
+                 else clumping)
         ndens = ndens_proper.to(device=dev, dtype=dtype)
 
         if stats is not None:
             stats.state_before(grid_counts(cfg, ndens, state.xh1,
-                                           state.temper_av, clump), vol)
+                                           state.temper_av, clump,
+                                           compressed=cfg.compressed_xfrac),
+                               vol)
 
         xh1 = state.xh1
-        xh_av = xh1
-        xh_int = xh1
         # temperatures (None when isothermal): the step-initial current
         # one, and the average and end-of-step iterates
         t_cur, t_av, t_int = (state.temper_current, state.temper_av,
                               state.temper_intermed)
-        niter = 0
+        # the iterates start from the step-initial state
+        # (evolve.F90:140-153), or from an iteration dump (:154-158)
+        if iter_restart is not None:
+            def restored(key):
+                return torch.as_tensor(np.asarray(iter_restart[key]),
+                                       device=dev).to(dtype)
+            xh_av = restored("xh_av")
+            xh_int = restored("xh_intermed")
+            niter = int(iter_restart["niter"])
+            if not cfg.isothermal and "temper" in iter_restart:
+                t_int = restored("temper")
+            if not cfg.isothermal and "temper_av" in iter_restart:
+                t_av = restored("temper_av")
+        else:
+            xh_av = xh1
+            xh_int = xh1
+            niter = 0
         conv_flag = n_cells
         prev_sum1 = 2.0 * n_cells
         prev_sum0 = 2.0 * n_cells
@@ -388,10 +433,34 @@ class Evolve3D:
             stats.calculate(GridCounts(s4[0], s4[1], 0.0, 0.0),
                             GridCounts(0.0, 0.0, s4[2], s4[3]), vol, dt)
 
+        # the pending global pass of a resumed step: the dump was written
+        # after the sweep, before the chemistry (evolve.F90:253-269), so
+        # the restored rates go straight into the chemistry, no re-sweep
+        if iter_restart is not None and "phih" in iter_restart:
+            phih = restored("phih")
+            if not cfg.isothermal and "phiheat" in iter_restart:
+                phiheat = restored("phiheat")
+            photon_loss = float(iter_restart["photon_loss"])
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            xh_int, xh_av, t_int_d, t_av_d, packed = self._tail(
+                dt, ndens, state.xh1, xh_int, xh_av, phih, clump,
+                torch.tensor(photon_loss, dtype=dtype, device=dev), zero,
+                torch.zeros(0, dtype=dtype, device=dev), with_stats, phiheat, t_cur, t_av, coeff, sc)
+            if not cfg.isothermal:
+                t_int, t_av = t_int_d, t_av_d
+            got = packed.cpu().numpy()
+            conv_flag = int(got[0])
+            sum1 = float(got[1])
+            if with_stats:
+                last_stat4 = tuple(float(v) for v in got[4:8])
+                apply_stat4(last_stat4)
+                last_report = stats.report(dt, photon_loss, lls_loss,
+                                           total_flux)
+
         while True:
             # convergence tests (evolve.F90:179-233)
             if sum1 is None:
-                sum1 = float(torch.sum(xh_int))
+                sum1 = float(torch.sum(self._dense_x1(xh_int)))
             sum0 = float(n_cells) - sum1
             rel1 = abs(sum1 - prev_sum1) / sum1 if sum1 > 0.0 else 1.0
             rel0 = abs(sum0 - prev_sum0) / sum0 if sum0 > 0.0 else 1.0
@@ -432,9 +501,11 @@ class Evolve3D:
                 phih, phiheat, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
                     cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc,
                     lls_grid=lls_t, nflux_xray=nfx_t)
+            # the pre-chemistry iterates, for the iteration dump
+            pre = (xh_av, xh_int, t_int, t_av)
             xh_int, xh_av, t_int_d, t_av_d, packed = self._tail(
                 dt, ndens, state.xh1, xh_int, xh_av, phih, clump, ploss_d,
-                llsl_d, psrc_d, with_stats, phiheat, t_cur, t_av, coeff)
+                llsl_d, psrc_d, with_stats, phiheat, t_cur, t_av, coeff, sc)
             if not cfg.isothermal:
                 t_int, t_av = t_int_d, t_av_d
 
@@ -458,16 +529,30 @@ class Evolve3D:
             else:
                 per_src_loss = got[k:k + num_src].astype(np.float64)
 
+            # the wall-clock-driven double-buffered dump of the post-sweep,
+            # pre-chemistry iterates and rate grids (evolve.F90:253-266),
+            # so a resume re-enters at the pending global pass
+            if dumper is not None:
+                iso = cfg.isothermal
+                dumper.maybe_dump(niter, photon_loss, phih, pre[0], pre[1],
+                                  None if iso else phiheat,
+                                  None if iso else pre[2],
+                                  None if iso else pre[3])
             if with_stats:
                 apply_stat4(last_stat4)
                 last_report = stats.report(dt, photon_loss, lls_loss,
                                            total_flux)
+            if clocks is not None:
+                clocks.stamp(f"Time after iteration {niter}")
 
         # end-of-step statistics (evolve.F90:277-279)
         if stats is not None:
             if last_stat4 is None:
-                ca = grid_counts(cfg, ndens, xh1, t_av, clump)
-                cr = grid_counts(cfg, ndens, xh_av, t_av, clump)
+                comp = cfg.compressed_xfrac
+                ca = grid_counts(cfg, ndens, xh1, t_av, clump,
+                                 compressed=comp)
+                cr = grid_counts(cfg, ndens, xh_av, t_av, clump,
+                                 compressed=comp)
                 stats.calculate(ca, cr, vol, dt)
             else:
                 apply_stat4(last_stat4)

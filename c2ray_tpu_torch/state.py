@@ -3,8 +3,9 @@ c2ray_tpu/state.py).
 
 The comoving density and cell size are the invariant base state; proper
 (physical) values are derived per step from the current redshift
-(cosmology.F90:161-193 cosmo_evol, without mutation).  Compressed
-ionization-fraction storage is not part of this slice of the port.
+(cosmology.F90:161-193 cosmo_evol, without mutation).  Under compressed
+ionization-fraction storage (cfg.compressed_xfrac) xh1 holds the signed
+min-fraction form (compress_xh); xh1_of and xh0_of decode it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from .config import RunConfig, resolve_device
 class GridState(NamedTuple):
     """Prognostic fields, (N,N,N) tensors at the config dtype.
 
-    xh1:      H ionized fraction at the last completed step (xh).
+    xh1:      H ionized fraction at the last completed step (xh); the
+              compressed form (compress_xh) under cfg.compressed_xfrac.
     temper_*: temperature states; None when isothermal.
     """
 
@@ -28,6 +30,34 @@ class GridState(NamedTuple):
     temper_current: Optional[torch.Tensor] = None
     temper_av: Optional[torch.Tensor] = None
     temper_intermed: Optional[torch.Tensor] = None
+
+
+# compressed ionization-fraction storage (the reference's compressed/
+# variant, compressed/README:1-13): store the SMALLER of (x_HI, x_HII),
+# the sign saying which (negative: x_HI is stored), so both tails keep
+# full float precision in float32.
+
+def compress_xh(xh1: torch.Tensor,
+                xh0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encode (x_HII [, x_HI]) into the signed compressed form; pass the
+    natively computed neutral fraction when there is one (the chemistry
+    does).  A saturated cell (x_HI == 0) stores +1.0, not -0.0: IEEE
+    -0.0 >= 0 holds, so -0.0 would decode as fully neutral."""
+    if xh0 is None:
+        xh0 = 1.0 - xh1
+    return torch.where(xh1 <= 0.5, xh1,
+                       torch.where(xh0 > 0.0, -xh0, torch.ones_like(xh1)))
+
+
+def xh1_of(xc: torch.Tensor) -> torch.Tensor:
+    """Ionized fraction from the compressed form (tail-exact for x <= 0.5)."""
+    return torch.where(xc >= 0, xc, 1.0 + xc)
+
+
+def xh0_of(xc: torch.Tensor) -> torch.Tensor:
+    """Neutral fraction from the compressed form (tail-exact for
+    x_HI <= 0.5)."""
+    return torch.where(xc >= 0, 1.0 - xc, -xc)
 
 
 class MaterialState(NamedTuple):
@@ -42,12 +72,11 @@ class MaterialState(NamedTuple):
 def initial_state(cfg: RunConfig, device=None) -> GridState:
     """Initial ionization (RECFAST 2e-4, ionfractions_module.F90:41-50)
     and temperature (initial_temperature)."""
-    if cfg.compressed_xfrac:
-        raise NotImplementedError(
-            "compressed_xfrac storage is not ported to c2ray_tpu_torch yet")
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     xh1 = torch.full(cfg.mesh, cfg.initial_xh, dtype=dt, device=dev)
+    if cfg.compressed_xfrac:
+        xh1 = compress_xh(xh1)
     if cfg.isothermal:
         return GridState(xh1=xh1)
     t = torch.full(cfg.mesh, cfg.initial_temperature, dtype=dt, device=dev)

@@ -233,11 +233,14 @@ def test_evolve3d_device_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(compressed_xfrac=True),
-    dict(add_photon_losses=True),
+    dict(mesh=(8, 8, 10)),        # the JAX package asserts a cubic mesh too
+    dict(dtype="float16"),
 ])
 def test_rejected_options_raise(overrides):
-    cfg = port.test_problem_config(mesh=8, dtype="float64", **overrides)
+    """What the port still refuses on the CPU: compressed storage and
+    add_photon_losses are ported (tests/test_torch_compressed.py)."""
+    cfg = port.test_problem_config(mesh=8, dtype="float64").replace(
+        **overrides)
     tabs = build_rad_tables(port.test_problem_config(mesh=8,
                                                      dtype="float64"),
                             device="cpu")
@@ -245,14 +248,35 @@ def test_rejected_options_raise(overrides):
         port.Evolve3D(cfg, tabs, device="cpu")
 
 
-def test_rejected_call_arguments_raise():
+def test_rejected_call_arguments_raise(tmp_path):
+    """dumper, iter_restart and clocks, once refused, are accepted and
+    used: a step cut at 4 iterations dumps every iteration (interval 0),
+    the clock stamps each iteration, and the step resumed from the newest
+    dump ends where the uninterrupted step does (niter and xh1)."""
+    from c2ray_tpu_torch.utils.checkpoint import IterDumper
+    from c2ray_tpu_torch.utils.clocks import Clocks
     cfg = port.test_problem_config(mesh=8, dtype="float64",
-                                   cosmological=False)
-    solver = port.Evolve3D(cfg, build_rad_tables(cfg, device="cpu"),
-                           device="cpu")
-    state = port.initial_state(cfg, device="cpu")
+                                   cosmological=False, use_lls=False)
+    tabs = build_rad_tables(cfg, device="cpu")
     nd = torch.full((8,) * 3, NH, dtype=torch.float64)
-    src, flux = np.array([[4, 4, 4]]), np.array([1.0])
-    for kw in (dict(dumper=1), dict(iter_restart={}), dict(clocks=1)):
-        with pytest.raises(NotImplementedError):
-            solver.evolve3d(state, nd, 1e22, src, flux, DT, **kw)
+    src, flux = np.array([[4, 4, 4]]), np.array([1e9])
+
+    def step(c, **kw):
+        solver = port.Evolve3D(c, tabs, device="cpu")
+        return solver.evolve3d(port.initial_state(c, device="cpu"), nd,
+                               2.9e24, src, flux, 3.1e14, **kw)
+    full, info = step(cfg)
+    assert info.niter > 5
+    clocks = Clocks(str(tmp_path / "Timings.log"))
+    dumper = IterDumper(dump_dir=str(tmp_path), interval_s=0.0)
+    _, cut = step(cfg.replace(max_global_iterations=4), dumper=dumper,
+                  clocks=clocks)
+    assert dumper._ndump == cut.niter == 5
+    stamps = (tmp_path / "Timings.log").read_text().splitlines()
+    assert stamps[-1].startswith("Time after iteration 5")
+    loaded = IterDumper.load(str(tmp_path), 1)        # the 5th dump
+    assert int(loaded["niter"]) == 5
+    resumed, rinfo = step(cfg, iter_restart=loaded)
+    assert rinfo.niter == info.niter
+    np.testing.assert_allclose(resumed.xh1.numpy(), full.xh1.numpy(),
+                               rtol=1e-10, atol=0)
