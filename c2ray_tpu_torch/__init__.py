@@ -19,8 +19,10 @@ sweeps or the adaptive windowed many-source sweep; LLS off or of type 1
 (a column per cell), 2 (a column cube) or 3 (the R_max barrier), which
 set_lls and set_lls_device set up per redshift; X-ray sources
 (evolve3d's nflux_xray); compressed ionization-fraction storage
-(compress_xh, xh1_of, xh0_of) and add_photon_losses.  The multi-device
-layouts, tools.py and float64 or table rates on CUDA are not ported yet
+(compress_xh, xh1_of, xh0_of) and add_photon_losses.  The parallel
+layouts (parallel/: --layout src|dom|halo, one process per rank over
+torch.distributed) inject their sweeps and chemistry into Evolve3D.
+tools.py and float64 or table rates on CUDA are not ported yet
 (ROADMAP.md).
 """
 

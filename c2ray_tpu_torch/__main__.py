@@ -1,18 +1,27 @@
 """Command-line run: python -m c2ray_tpu_torch [input_file] [options].
 
-The JAX package's command line (python -m c2ray_tpu), flag for flag, on
-one device: --device (default cuda; there is no fallback to the CPU, so
-a run without a card needs --device cpu).  The run configuration comes
-from an input file given as the first argument, or from stdin
-(C2Ray.F90:115-127).  The multi-device layouts (--layout src|dom|halo,
---shard-sources, --src-devices, --dom-devices) are not ported yet and
-raise NotImplementedError.
+The JAX package's command line (python -m c2ray_tpu), flag for flag,
+with --device (default cuda; there is no fallback to the CPU, so a run
+without a card needs --device cpu).  The run configuration comes from an
+input file given as the first argument, or from stdin
+(C2Ray.F90:115-127).
+
+The parallel layouts (--layout src|dom|halo, --shard-sources,
+--src-devices, --dom-devices; parallel/layout.py) run one process per
+rank, each started with the same command line and the C2RAY_*
+environment (parallel/multihost.py):
+
+    C2RAY_COORDINATOR=localhost:29500 C2RAY_NUM_PROCESSES=2 \
+    C2RAY_PROCESS_ID=0 python -m c2ray_tpu_torch in.txt --layout halo &
+    ... C2RAY_PROCESS_ID=1 ...
+
+Rank r runs on cuda:{r % cards} (or --device cpu), over nccl when every
+rank has a card of its own, else over gloo (C2RAY_BACKEND overrides).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 
@@ -46,16 +55,21 @@ def build_driver(argv=None):
                     help="override the input file's redshift list "
                          "(required for multi-snapshot gadget runs)")
     ap.add_argument("--shard-sources", action="store_true",
-                    help="shard sources over all local devices (not "
-                         "ported: raises NotImplementedError)")
+                    help="shard sources over all ranks (equivalent to "
+                         "--layout src)")
+    # runtime parallel layout (the reference's link-time parallel modes,
+    # makefile_core:40-104, chosen at run time)
     ap.add_argument("--layout", default="none",
                     choices=["none", "src", "dom", "halo"],
-                    help="parallel layout; only none is ported, the "
-                         "others raise NotImplementedError")
+                    help="parallel layout: src = source sharding "
+                         "(replicated grid + summed rates, the reference's "
+                         "MPI layout), dom = slab-sharded rate physics, "
+                         "halo = fully domain-decomposed grid (meshes "
+                         "beyond one card's memory)")
     ap.add_argument("--src-devices", type=int, default=0,
-                    help="devices on the source axis (not ported)")
+                    help="ranks on the source axis (0 = auto)")
     ap.add_argument("--dom-devices", type=int, default=0,
-                    help="devices on the domain axis (not ported)")
+                    help="ranks on the domain axis (0 = auto)")
     # physics model selection (the reference's compile-time knobs in
     # c2ray_parameters.f90:69-99, all runtime here)
     ap.add_argument("--type-of-clumping", type=int, default=1,
@@ -90,26 +104,23 @@ def build_driver(argv=None):
                          "march and records the choice only")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (cuda, or cpu for the "
-                         "plain PyTorch versions of the kernels)")
+                         "plain PyTorch versions of the kernels); under a "
+                         "layout rank r takes cuda:{r %% cards}")
     args = ap.parse_args(argv)
 
-    if (args.layout != "none" or args.shard_sources or args.src_devices
-            or args.dom_devices
-            or int(os.environ.get("C2RAY_NUM_PROCESSES", "1")) > 1):
-        raise NotImplementedError(
-            "the multi-device layouts (--layout src|dom|halo, "
-            "--shard-sources, --src-devices, --dom-devices, multi-process "
-            "runs) are not ported to c2ray_tpu_torch yet (ROADMAP.md "
-            "Queue 1, the multi-GPU layouts)")
-
-    from .config import COSMOLOGY_SETS, resolve_device, test_problem_config
+    from .config import COSMOLOGY_SETS, test_problem_config
     from .driver import (C2RayDriver, DriverConfig, read_input_file,
                          read_input_stdin)
     from .models.nbody import (cubep3m_adapter, gadget_adapter, lg_adapter,
                                pmfast_adapter, test_adapter)
+    from .parallel import multihost
+    from .parallel.layout import ParallelLayout
 
-    # None means CUDA in the port's device rule, which raises without one
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    # the rank's device: cuda (cuda:{rank % cards} under a layout, raising
+    # without a card) unless --device names another; then the process
+    # group, a no-op without the C2RAY_* environment (mpi.F90:83-178)
+    device = multihost.rank_device(args.device)
+    multihost.init_distributed(device=device)
     cfg = test_problem_config(mesh=args.mesh, boxsize_mpc_h=args.boxsize,
                               dtype=args.dtype, isothermal=args.isothermal,
                               type_of_clumping=args.type_of_clumping,
@@ -161,7 +172,12 @@ def build_driver(argv=None):
     adapter.dir_clump = args.clump_dir
     adapter.dir_lls = args.lls_dir
 
-    return (C2RayDriver(cfg, adapter=adapter, driver_cfg=dc, device=device),
+    kind = ("src" if (args.shard_sources and args.layout == "none")
+            else args.layout)
+    layout = ParallelLayout(kind=kind, n_src=args.src_devices,
+                            n_dom=args.dom_devices)
+    return (C2RayDriver(cfg, adapter=adapter, driver_cfg=dc, device=device,
+                        layout=layout),
             args.max_slices)
 
 

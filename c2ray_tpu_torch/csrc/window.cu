@@ -3,11 +3,13 @@
 //
 // Replaces: c2ray_tpu/ops/window_pallas.py::_gather_kernel (launcher
 // window_gather) and ::_scatter_kernel (launcher window_scatter_add).  The
-// padded field and the accumulator are exactly m^3 = (n+2r)^3, row-major;
-// the window of source q is the p^3 block (p = 2r+1) with its corner at q
-// in padded coordinates, q in [0, n).  The TPU kernels' covering blocks,
-// lane margins and rotates exist only for Mosaic's (8,128)-tiled DMA and
-// do not carry over.
+// padded field and the accumulator are exactly (m0, m, m), row-major: m0 =
+// m = n+2r on the cube, m0 = (slab rows)+2r on the halo layout's slab
+// (parallel/domain.py); the window of source q is the p^3 block (p = 2r+1)
+// with its corner at q in padded coordinates.  Axis 0's extent enters only
+// the corner test, so the cube's code and bits are those of m0 = m.  The
+// TPU kernels' covering blocks, lane margins and rotates exist only for
+// Mosaic's (8,128)-tiled DMA and do not carry over.
 //
 // What bounds them on the H100: bytes.  The gather reads and writes each
 // window cell once (2*B*p^3*4 B: 10.1 MB at r = 8 x 256 windows, 3.0 us at
@@ -23,11 +25,11 @@
 // contiguous row of the window.  The block computes its two base pointers
 // once; the offsets inside the slab are 32-bit and need no division or
 // modulo.  Each row is read once; windows that overlap find theirs in L2.
-// A window whose corner lies outside [0, m-p] is written as zeros (a
-// per-block early exit).  A build with C2R_WINDOW_GATHER_PER_CELL (timing
-// only, never the shipped one) runs the first form instead, gather_cells:
-// one thread per window cell, located by division, so the two can be
-// compared on the card.
+// A window whose corner lies outside [0, m0-p] x [0, m-p]^2 is written
+// as zeros (a per-block early exit).  A build with
+// C2R_WINDOW_GATHER_PER_CELL (timing only, never the shipped one) runs the
+// first form instead, gather_cells: one thread per window cell, located by
+// division, so the two can be compared on the card.
 //
 // Design of the scatter-add (scatter_slabs): owner computes, no atomics.
 // Windows overlap each other (and repeat where two sources share a cell,
@@ -63,9 +65,9 @@
 // scatter_cells (one thread per window cell, located by division, float
 // atomicAdd, an order of the sums that changes from run to run); both are
 // timing builds only, never the shipped one.  A window whose corner lies
-// outside [0, m-p] is in no list and writes nothing, so a bad position
-// cannot write outside the accumulator (the callers check positions on
-// the host).
+// outside [0, m0-p] x [0, m-p]^2 is in no list and writes nothing, so a
+// bad position cannot write outside the accumulator (the callers check
+// positions on the host).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -78,9 +80,9 @@ namespace {
 
 constexpr int kRowLanes = 32, kRowWarps = 8;     // the gather's block
 
-__device__ __forceinline__ bool corner_ok(int q0, int q1, int q2, int m,
-                                          int p) {
-  return q0 >= 0 && q1 >= 0 && q2 >= 0 && q0 <= m - p && q1 <= m - p &&
+__device__ __forceinline__ bool corner_ok(int q0, int q1, int q2, int m0,
+                                          int m, int p) {
+  return q0 >= 0 && q1 >= 0 && q2 >= 0 && q0 <= m0 - p && q1 <= m - p &&
          q2 <= m - p;
 }
 
@@ -93,7 +95,7 @@ struct Cell {
 };
 
 // Window cell idx of the (B, p, p, p) windows, located by division.
-__device__ __forceinline__ Cell locate(const int* pos, int m, int p,
+__device__ __forceinline__ Cell locate(const int* pos, int m0, int m, int p,
                                        size_t idx) {
   const size_t p3 = (size_t)p * p * p;
   const int w = (int)(idx / p3);
@@ -103,7 +105,7 @@ __device__ __forceinline__ Cell locate(const int* pos, int m, int p,
   const int k = (int)(rem % p);
   const int q0 = pos[3 * w], q1 = pos[3 * w + 1], q2 = pos[3 * w + 2];
   Cell cell;
-  cell.ok = corner_ok(q0, q1, q2, m, p);
+  cell.ok = corner_ok(q0, q1, q2, m0, m, p);
   cell.pad = ((size_t)(q0 + i) * m + (q1 + j)) * m + (q2 + k);
   return cell;
 }
@@ -112,25 +114,26 @@ int blocks(size_t total) { return (int)((total + kThreads - 1) / kThreads); }
 #endif
 
 #ifdef C2R_WINDOW_GATHER_PER_CELL
-__global__ void gather_cells(const float* field, int m, const int* pos,
-                             size_t total, int p, float* out) {
+__global__ void gather_cells(const float* field, int m0, int m,
+                             const int* pos, size_t total, int p,
+                             float* out) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const Cell cell = locate(pos, m, p, idx);
+  const Cell cell = locate(pos, m0, m, p, idx);
   out[idx] = cell.ok ? field[cell.pad] : 0.f;
 }
 #endif
 
 // Block (window w, slab i): out[w][i][j][k] <- field[q0+i][q1+j][q2+k].
 __global__ void __launch_bounds__(kRowLanes * kRowWarps)
-gather_slabs(const float* __restrict__ field, int m,
+gather_slabs(const float* __restrict__ field, int m0, int m,
              const int* __restrict__ pos, int p, float* __restrict__ out) {
   const int w = blockIdx.x, i = blockIdx.y;
   const int q0 = __ldg(pos + 3 * w), q1 = __ldg(pos + 3 * w + 1),
             q2 = __ldg(pos + 3 * w + 2);
   float* o = out + ((size_t)w * p + i) * p * p;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  if (!corner_ok(q0, q1, q2, m, p)) {
+  if (!corner_ok(q0, q1, q2, m0, m, p)) {
     for (int j = ty; j < p; j += kRowWarps)
       for (int k = tx; k < p; k += kRowLanes) o[j * p + k] = 0.f;
     return;
@@ -144,11 +147,11 @@ gather_slabs(const float* __restrict__ field, int m,
 }
 
 #ifdef C2R_WINDOW_SCATTER_ATOMIC
-__global__ void scatter_cells(float* acc, int m, const int* pos,
+__global__ void scatter_cells(float* acc, int m0, int m, const int* pos,
                               size_t total, int p, const float* rates) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const Cell cell = locate(pos, m, p, idx);
+  const Cell cell = locate(pos, m0, m, p, idx);
   if (cell.ok) atomicAdd(acc + cell.pad, rates[idx]);
 }
 #else
@@ -241,8 +244,9 @@ __device__ __forceinline__ void copy_async_wait() {
 // (j, k) of this slab where (j+dy, k+dz) lies in [0, p)^2, and its term
 // is rates[off + j*p + k].
 __global__ void __launch_bounds__(kScatterThreads, kScatterMinBlocks)
-scatter_slabs(float* __restrict__ acc, int m, const int* __restrict__ pos,
-              int nwin, int p, const float* __restrict__ rates) {
+scatter_slabs(float* __restrict__ acc, int m0, int m,
+              const int* __restrict__ pos, int nwin, int p,
+              const float* __restrict__ rates) {
   extern __shared__ float4 shared[];
   __shared__ int counts[2][kScatterWarps];
   float* stage = (float*)shared + threadIdx.x;
@@ -252,7 +256,7 @@ scatter_slabs(float* __restrict__ acc, int m, const int* __restrict__ pos,
   const int lane = tid & 31, warp = tid >> 5;
   const int q0 = __ldg(pos + 3 * w), q1 = __ldg(pos + 3 * w + 1),
             q2 = __ldg(pos + 3 * w + 2);
-  if (!corner_ok(q0, q1, q2, m, p)) return;
+  if (!corner_ok(q0, q1, q2, m0, m, p)) return;
   const int x = q0 + i, pp = p * p;
   float* slab = acc + ((size_t)x * m + q1) * m + q2;
   const float* own = rates + ((size_t)w * p + i) * pp;
@@ -272,7 +276,7 @@ scatter_slabs(float* __restrict__ acc, int m, const int* __restrict__ pos,
     if (v < nwin && v != w) {
       const int v0 = __ldg(pos + 3 * v), v1 = __ldg(pos + 3 * v + 1),
                 v2 = __ldg(pos + 3 * v + 2);
-      if (corner_ok(v0, v1, v2, m, p)) {
+      if (corner_ok(v0, v1, v2, m0, m, p)) {
         twin = v < w && v0 == q0 && v1 == q1 && v2 == q2;
         hit = v0 <= x && x < v0 + p && abs(v1 - q1) < p && abs(v2 - q2) < p;
       }
@@ -355,17 +359,17 @@ scatter_slabs(float* __restrict__ acc, int m, const int* __restrict__ pos,
 
 extern "C" {
 
-// out (B, p, p, p) <- the windows of field (m, m, m) at the B corners pos.
-// Returns the first CUDA error code, 0 on success.
-int c2r_window_gather(const float* field, int m, const int* pos, int nwin,
-                      int p, float* out, void* stream) {
+// out (B, p, p, p) <- the windows of field (m0, m, m) at the B corners
+// pos.  Returns the first CUDA error code, 0 on success.
+int c2r_window_gather(const float* field, int m0, int m, const int* pos,
+                      int nwin, int p, float* out, void* stream) {
 #ifdef C2R_WINDOW_GATHER_PER_CELL
   const size_t total = (size_t)nwin * p * p * p;
   gather_cells<<<blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
-      field, m, pos, total, p, out);
+      field, m0, m, pos, total, p, out);
 #else
   gather_slabs<<<dim3(nwin, p), dim3(kRowLanes, kRowWarps), 0,
-                 (cudaStream_t)stream>>>(field, m, pos, p, out);
+                 (cudaStream_t)stream>>>(field, m0, m, pos, p, out);
 #endif
   return (int)cudaGetLastError();
 }
@@ -396,16 +400,17 @@ int c2r_window_scatter_max_windows(void) {
 #endif
 }
 
-// acc (m, m, m) += each window of rates (B, p, p, p) at its corner, in
+// acc (m0, m, m) += each window of rates (B, p, p, p) at its corner, in
 // place, in window order.  Returns the first CUDA error code, 0 on
 // success (cudaErrorInvalidValue where B exceeds
 // c2r_window_scatter_max_windows()).
-int c2r_window_scatter_add(float* acc, int m, const int* pos, int nwin,
-                           int p, const float* rates, void* stream) {
+int c2r_window_scatter_add(float* acc, int m0, int m, const int* pos,
+                           int nwin, int p, const float* rates,
+                           void* stream) {
 #ifdef C2R_WINDOW_SCATTER_ATOMIC
   const size_t total = (size_t)nwin * p * p * p;
   scatter_cells<<<blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
-      acc, m, pos, total, p, rates);
+      acc, m0, m, pos, total, p, rates);
 #else
   const size_t smem =
       (size_t)kScatterCells * kScatterTerms * kScatterThreads * sizeof(float) +
@@ -417,7 +422,7 @@ int c2r_window_scatter_add(float* acc, int m, const int* pos, int nwin,
     if (err != cudaSuccess) return (int)err;
   }
   scatter_slabs<<<dim3(p, nwin), kScatterThreads, smem,
-                  (cudaStream_t)stream>>>(acc, m, pos, nwin, p, rates);
+                  (cudaStream_t)stream>>>(acc, m0, m, pos, nwin, p, rates);
 #endif
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,11 @@ and the photon-conservation abort (:395-416).  The grids live on the
 driver's device (None: CUDA); the catalogs, the files and the source
 model stay on the host.
 
+Under a parallel layout (parallel/layout.py) every rank runs this driver
+(SPMD): rank 0 reads the catalogs and small inputs and broadcasts them,
+and alone writes files; under the halo layout each rank reads only its
+own rows of the grid cubes and holds its slab of every grid.
+
 Also the reader of the reference's ordered input-file protocol (stdin
 answers, C2Ray.F90:115-127 + material.F90:76-112 +
 sourceprops.F90:694-755 + time_module.F90:44-54).
@@ -35,6 +40,8 @@ from .models.sources import (SourceModel, read_suppressed_source_list,
 from .ops.photonstats import PhotonStatistics
 from .ops.tables import build_rad_tables
 from .ops.thermal import setup_cool
+from .parallel import multihost as mh
+from .parallel.layout import LayoutRuntime, ParallelLayout
 from .solver import Evolve3D, EvolveInfo
 from .state import (GridState, MaterialState, initial_state,
                     uniform_material, xh1_of)
@@ -132,28 +139,43 @@ def parse_input_answers(answers, nbody_type: str = "test") -> DriverConfig:
 
 class C2RayDriver:
     """The full simulation pipeline (program C2Ray equivalent) on one
-    device (None: CUDA; the tests pass "cpu")."""
+    device (None: CUDA; the tests pass "cpu"), or on this rank's device
+    under a parallel layout (layout: a parallel.layout.ParallelLayout;
+    the process group must be up, parallel.multihost.init_distributed)."""
 
     def __init__(self, cfg: RunConfig, adapter: Optional[NbodyAdapter] = None,
                  driver_cfg: Optional[DriverConfig] = None,
                  material: Optional[MaterialState] = None,
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None,
+                 layout: Optional[ParallelLayout] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dc = driver_cfg or DriverConfig()
         self.adapter = adapter or test_adapter(cfg)
-        self.verbose = verbose
+        # rank discipline (mpi.F90:83-178): rank 0 owns the files
+        self.io_rank = mh.is_io_rank()
+        self.verbose = verbose and self.io_rank
 
         # init sequence (C2Ray.F90:108-198): grid, radiation tables,
         # cooling, material, sources, time, cosmology
-        self.clocks = Clocks(os.path.join(self.dc.results_dir, "Timings.log"))
+        self.clocks = Clocks(os.path.join(self.dc.results_dir, "Timings.log"),
+                             enabled=self.io_rank)
         self.tables = build_rad_tables(cfg, device=self.device)
         self.clocks.stamp("Time after radiation tables")
         self.cool = (None if cfg.isothermal
                      else setup_cool(cfg, device=self.device))
-        self.solver = Evolve3D(cfg, self.tables, self.device, cool=self.cool)
+        # the run-time parallel layout: its rank grid and the injections
+        self.layout = LayoutRuntime(cfg, layout or ParallelLayout(),
+                                    self.device)
+        lay = self.layout
+        self.solver = Evolve3D(cfg, self.tables, self.device, cool=self.cool,
+                               raytracer=lay.raytracer,
+                               chemistry=lay.chemistry, windowed=lay.windowed,
+                               rate_sharding=lay.rate_sharding)
         self.stats = PhotonStatistics(cfg)
-        self.output = OutputWriter(cfg, results_dir=self.dc.results_dir)
+        gathers = lay if lay.grid is not None else None
+        self.output = OutputWriter(cfg, results_dir=self.dc.results_dir,
+                                   layout=gathers, io_enabled=self.io_rank)
         self.output.setup()
         self.source_model = SourceModel.from_recipe(
             cfg, self.dc.uv_recipe, m_grid=self.adapter.m_grid,
@@ -161,8 +183,8 @@ class C2RayDriver:
         # fixed-budget UV models read their per-slice photon budgets at
         # init (source_properties_ini, sourceprops.F90:727-753)
         if self.dc.uv_recipe in (1, 2) and self.dc.uv_file:
-            self.source_model.uv_array = read_uv_file(self.dc.uv_file,
-                                                      self.dc.uv_recipe)
+            self.source_model.uv_array = mh.read_on_io_rank(
+                read_uv_file, self.dc.uv_file, self.dc.uv_recipe)
         # the sub-grid clumping parameter files, at the grid resolution
         # (C2Ray.F90:264 load_clumping_model(dr(1)); the file names carry
         # it in Mpc at f5.3, clumping_module.F90:122-223); types 1 and 5
@@ -176,8 +198,10 @@ class C2RayDriver:
         self.material = material
         self.clock = CosmoClock.init(cfg.cosmo,
                                      float(self.adapter.zred_array[0]))
-        # 15-minute double-buffered iteration dumps (evolve.F90:253-266)
-        self.dumper = IterDumper(dump_dir=self.dc.dump_dir)
+        # 15-minute double-buffered iteration dumps (evolve.F90:253-266),
+        # written by rank 0
+        self.dumper = IterDumper(dump_dir=self.dc.dump_dir,
+                                 enabled=self.io_rank, layout=gathers)
         # per timestep: redshift, time, the step's wall span on the clocks
         # (seconds since their start) and its EvolveInfo; and the last
         # step's clumping (a factor, or the grid of types 3-5)
@@ -186,11 +210,13 @@ class C2RayDriver:
         # the run log (the reference's results/C2Ray.log, unit logf=30,
         # mpi.F90:93-151): every driver message is teed into it
         self._logf = None
-        try:
-            self._logf = open(os.path.join(self.dc.results_dir, "C2Ray.log"),
-                              "a")
-        except OSError:
-            pass
+        if self.io_rank:
+            try:
+                self._logf = open(os.path.join(self.dc.results_dir,
+                                               "C2Ray.log"), "a")
+            except OSError:
+                pass
+        self._log(self.layout.describe())
 
     def _log(self, *msg):
         if self.verbose:
@@ -210,21 +236,40 @@ class C2RayDriver:
             return xh1_of(state.xh1)
         return state.xh1
 
+    def _restart(self, zred: float) -> GridState:
+        """A slice restart's state: under halo each rank reads its own rows
+        of the cubes (the JAX _restart_sharded); otherwise rank 0 reads
+        them and broadcasts (ionfractions_module.F90:56-120)."""
+        cfg, dc, lay = self.cfg, self.dc, self.layout
+        if lay.sharded_grid:
+            return load_slice_restart(cfg, dc.results_dir, zred,
+                                      device=self.device, rows=lay.rows)
+        host = mh.read_on_io_rank(lambda: load_slice_restart(
+            cfg, dc.results_dir, zred, device="cpu"))
+        return GridState(*[None if x is None else x.to(self.device)
+                           for x in host])
+
     # ------------------------------------------------------------------
     def run(self, max_slices: Optional[int] = None) -> GridState:
         cfg = self.cfg
         dc = self.dc
         ad = self.adapter
         dev = self.device
+        lay = self.layout
         zreds = ad.zred_array
 
-        # material initialization (material.F90:44-134)
+        # material initialization (material.F90:44-134), at the shape this
+        # rank holds (its slab under halo)
         if self.material is None:
+            local = lay.local_cfg()
             if ad.nbody_type == "test":
-                self.material = uniform_material(cfg, device=dev)
+                self.material = uniform_material(local, device=dev)
             else:
                 self.material = MaterialState(ndens_comoving=torch.zeros(
-                    cfg.mesh, dtype=cfg.torch_dtype, device=dev))
+                    local.mesh, dtype=cfg.torch_dtype, device=dev))
+        elif lay.sharded_grid:
+            self.material = MaterialState(*[lay.shard_grid(f)
+                                            for f in self.material])
 
         # restart handling (C2Ray.F90:200-253)
         nz0 = dc.nz0
@@ -236,27 +281,32 @@ class C2RayDriver:
                 raise ValueError(
                     f"restart=2: zred_interm {dc.zred_interm} outside slice "
                     f"[{zreds[nz0 + 1]}, {zreds[nz0]}]")
-            state = load_slice_restart(cfg, dc.results_dir, dc.zred_interm,
-                                       device=dev)
+            state = self._restart(dc.zred_interm)
         elif dc.restart == 1:
-            state = load_slice_restart(cfg, dc.results_dir,
-                                       float(zreds[nz0]), device=dev)
+            state = self._restart(float(zreds[nz0]))
         else:
-            state = initial_state(cfg, device=dev)
+            state = initial_state(lay.local_cfg(), device=dev)
 
         # restart-from-iteration-dump (C2Ray.F90:200-226): consumed by the
         # first evolve3d call only (evolve.F90:154-158)
         iter_restart = None
         if dc.restart != 0 and dc.iter_restart:
-            which = dc.iter_restart
-            if which == 3:   # generic: the newest dump there is
-                cands = [(i, os.path.join(dc.dump_dir, f"iterdump{i}.npz"))
-                         for i in (1, 2)]
-                cands = [(i, p) for i, p in cands if os.path.exists(p)]
-                which = (max(cands, key=lambda t: os.path.getmtime(t[1]))[0]
-                         if cands else 0)
-            if which:
-                iter_restart = IterDumper.load(dc.dump_dir, which)
+            def load_dump():
+                which = dc.iter_restart
+                if which == 3:   # generic: the newest dump there is
+                    cands = [(i, os.path.join(dc.dump_dir,
+                                              f"iterdump{i}.npz"))
+                             for i in (1, 2)]
+                    cands = [(i, p) for i, p in cands if os.path.exists(p)]
+                    which = (max(cands,
+                                 key=lambda t: os.path.getmtime(t[1]))[0]
+                             if cands else 0)
+                return ((IterDumper.load(dc.dump_dir, which), which)
+                        if which else (None, 0))
+
+            # read on rank 0 and broadcast
+            iter_restart, which = mh.read_on_io_rank(load_dump)
+            if iter_restart is not None:
                 self._log(f"resuming from iterdump{which} "
                           f"(niter={int(iter_restart['niter'])})")
 
@@ -296,21 +346,26 @@ class C2RayDriver:
             # per-slice sources (C2Ray.F90:303, sourceprops.F90:103-209)
             sup_file = ad.source_filename(zred, nz,
                                           "_sources_used_wfgamma.dat")
+            # the catalogs are read on rank 0 and broadcast
+            # (sourceprops.F90:154-209, 246-263)
             if (dc.restart >= 2 and nz == nz0
                     and self.source_model.uv_model != "Test"
-                    and os.path.exists(sup_file)):
+                    and mh.read_on_io_rank(os.path.exists, sup_file)):
                 # reproduce the restart's suppression state from the saved
                 # post-suppression list (sourceprops.F90:422-429,452-466)
-                cat = read_suppressed_source_list(sup_file)
+                cat = mh.read_on_io_rank(read_suppressed_source_list,
+                                         sup_file)
             else:
-                rows = ad.read_sources(zred, nz)
+                rows = mh.read_on_io_rank(ad.read_sources, zred, nz)
                 # suppression gathers x1 at the source cells on the device
-                cat = self.source_model.load(rows, self._x1_dev(state), nz,
-                                             end_time - sim_time, dt_slice=dt)
+                # (from the slabs under halo)
+                cat = self.source_model.load(
+                    rows, lay.point_view(self._x1_dev(state)), nz,
+                    end_time - sim_time, dt_slice=dt)
                 if cat.num_src == 0:
                     # bank the slice's photon budget (sourceprops.F90:199-207)
                     self.source_model.bank_photons(nz)
-                elif (self.source_model.uv_model != "Test"
+                elif (self.source_model.uv_model != "Test" and self.io_rank
                       and sup_file != ad.source_filename(zred, nz)):
                     # record the post-suppression list for reproducible
                     # restarts (sourceprops.F90:434-450)
@@ -321,11 +376,24 @@ class C2RayDriver:
 
             # per-slice density (C2Ray.F90:308, density_module.F90:48-125)
             if ad.nbody_type not in ("test",):
-                nd_prop = ad.read_density(zred, nz)   # proper at zred
-                comoving = (nd_prop / (1.0 + zred) ** 3
-                            if cfg.cosmological else nd_prop)
+                if lay.sharded_grid:
+                    # each rank reads its own rows of the cube (the JAX
+                    # halo layout; no rank holds the whole cube)
+                    zfac = cfg.np_dtype((1.0 + zred) ** 3
+                                        if cfg.cosmological else 1.0)
+                    ndc = lay.make_sharded(
+                        lambda r0, m: ad.read_density_slab(zred, nz, r0, m)
+                        / zfac)
+                else:
+                    # read on rank 0 and broadcast
+                    # (density_module.F90:82-125)
+                    nd_prop = mh.read_on_io_rank(ad.read_density, zred,
+                                                 nz)   # proper at zred
+                    comoving = (nd_prop / (1.0 + zred) ** 3
+                                if cfg.cosmological else nd_prop)
+                    ndc = torch.as_tensor(comoving, device=dev)
                 self.material = MaterialState(
-                    ndens_comoving=torch.as_tensor(comoving, device=dev),
+                    ndens_comoving=ndc,
                     clumping_grid=self.material.clumping_grid,
                     lls_grid=self.material.lls_grid)
 
@@ -336,13 +404,24 @@ class C2RayDriver:
             clump_grid_slice = None
             if cfg.type_of_clumping == 5:
                 grid = self.material.clumping_grid
-                clump_grid_slice = (grid if grid is not None
-                                    else ad.read_clumping_grid(zred))
+                if grid is not None:
+                    clump_grid_slice = grid
+                elif lay.sharded_grid:
+                    clump_grid_slice = lay.make_sharded(
+                        lambda r0, m: ad.read_clumping_grid_slab(zred, r0,
+                                                                 m))
+                else:
+                    clump_grid_slice = mh.read_on_io_rank(
+                        ad.read_clumping_grid, zred)
             lls_grid_slice = self.material.lls_grid
             lls_slice = None
             if cfg.use_lls and cfg.type_of_lls == 2:
                 if lls_grid_slice is None:
-                    lls_grid_slice = ad.read_lls_grid(zred)
+                    lls_grid_slice = (
+                        lay.make_sharded(
+                            lambda r0, m: ad.read_lls_grid_slab(zred, r0, m))
+                        if lay.sharded_grid
+                        else mh.read_on_io_rank(ad.read_lls_grid, zred))
                 # type-2 LLS columns are converted ONCE per slice at the
                 # slice redshift (C2Ray.F90:313; the timestep loop at :376
                 # skips set_LLS for type 2)
@@ -381,10 +460,12 @@ class C2RayDriver:
                     clump = self.clumping_model.evaluate(
                         z_now, grid_file_reader=lambda _z: clump_grid_slice)
                 else:
-                    avg_dens = float(torch.mean(
-                        self.material.ndens_comoving)) * zp1**3
-                    clump = evaluate_device(self.clumping_model, z_now,
-                                            nd_proper, avg_dens)
+                    avg_dens = lay.grid_mean(
+                        self.material.ndens_comoving) * zp1**3
+                    # under halo the slab's draw takes its global counters
+                    clump = evaluate_device(
+                        self.clumping_model, z_now, nd_proper, avg_dens,
+                        row0=lay.rows[0] if lay.sharded_grid else 0)
                 lls = (lls_slice if lls_slice is not None
                        else set_lls(cfg, z_now, dr_proper, lls_grid_slice))
                 cosmo_cool_coeff = 0.0
@@ -415,7 +496,7 @@ class C2RayDriver:
                     # this step (C2Ray.F90:379)
                     info = EvolveInfo(
                         niter=0, conv_flag=0, converged=True,
-                        mean_xh1=float(torch.mean(self._x1_dev(state))),
+                        mean_xh1=lay.grid_mean(self._x1_dev(state)),
                         photon_loss=0.0, lls_loss=0.0,
                         per_source_loss=np.zeros(0), photon_stats={})
                 iter_restart = None   # consumed by the first step only

@@ -174,33 +174,35 @@ def _key_words(seed: int):
     return (seed >> 32) & _M32, seed & _M32
 
 
-def random_bits(seed: int, shape, bit_width: int, device):
+def random_bits(seed: int, shape, bit_width: int, device, offset: int = 0):
     """jax.random.bits of jax.random.key(seed) at this shape with the
     partitionable layout (_threefry_random_bits_partitionable): the
     element at flat C-order index i hashes the 64-bit count i split into
     (high, low) words.  32 bits: y1 ^ y2 (int64 tensor); 64 bits: the
-    pair (y1, y2), the high and low words."""
+    pair (y1, y2), the high and low words.  offset: the flat index of
+    the first element, for a block (a slab's rows) of a larger draw."""
     import torch
     k1, k2 = _key_words(seed)
     n = int(np.prod(shape))
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
     if bit_width == 32:
         return (y1 ^ y2).reshape(shape)
     return y1.reshape(shape), y2.reshape(shape)
 
 
-def uniform(seed: int, shape, dtype, minval: float, maxval: float, device):
+def uniform(seed: int, shape, dtype, minval: float, maxval: float, device,
+            offset: int = 0):
     """jax.random.uniform(key(seed), shape, dtype, minval, maxval)
     (random._uniform): the mantissa bits under the exponent of 1.0, less
     1, scaled to the range in the working dtype and held above minval."""
     import torch
     if dtype == torch.float32:
-        bits = random_bits(seed, shape, 32, device)
+        bits = random_bits(seed, shape, 32, device, offset)
         fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
         floats = fbits.view(torch.float32) - 1.0
     else:
-        y1, y2 = random_bits(seed, shape, 64, device)
+        y1, y2 = random_bits(seed, shape, 64, device, offset)
         # the top 52 of the 64 bits (y1 << 32 | y2) >> 12
         fbits = (y1 << 20) | (y2 >> 12) | 0x3FF0000000000000
         floats = fbits.view(torch.float64) - 1.0
@@ -276,7 +278,7 @@ def erfinv_xla(x):
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), out * x)
 
 
-def normal(seed: int, shape, dtype, device):
+def normal(seed: int, shape, dtype, device, offset: int = 0):
     """jax.random.normal(key(seed), shape, dtype) (random._normal_real):
     sqrt(2) erf_inv(u), u uniform on (nextafter(-1, 0), 1).  The uniform
     variates are JAX's bit for bit, erf_inv is XLA's polynomial
@@ -284,7 +286,7 @@ def normal(seed: int, shape, dtype, device):
     import torch
     npd = np.float32 if dtype == torch.float32 else np.float64
     lo = float(np.nextafter(npd(-1.0), npd(0.0)))
-    u = uniform(seed, shape, dtype, lo, 1.0, device)
+    u = uniform(seed, shape, dtype, lo, 1.0, device, offset)
     return erfinv_xla(u) * float(npd(np.sqrt(2)))
 
 
@@ -307,11 +309,15 @@ def interp(x, xp, fp):
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-def evaluate_device(model: ClumpingModel, zred: float, ndens, avg_dens: float):
+def evaluate_device(model: ClumpingModel, zred: float, ndens, avg_dens: float,
+                    row0: int = 0):
     """Types 3 and 4 evaluated elementwise on the density tensor's device
     (the JAX twin's evaluate_device; clumping_module.F90:327-487).  The
     type-4 draw is threefry's, deterministic in (seed, zred): the same
-    cube as the JAX package's for the same inputs."""
+    cube as the JAX package's for the same inputs.  ndens may be the
+    rows [row0, row0+m) of the grid (a halo-layout slab): the draw's
+    counters are the cells' global indices, so the slabs hold the bits
+    of the whole cube's draw."""
     import torch
 
     cfg = model.cfg
@@ -339,5 +345,6 @@ def evaluate_device(model: ClumpingModel, zred: float, ndens, avg_dens: float):
     high = delta > mids[-1]
     mu = torch.where(low | high, dcm, mu)
     sig = torch.where(low, sig_s[0], torch.where(high, sig_s[-1], sig))
-    z = normal(model.seed + int(zred * 1000), tuple(ndens.shape), dtype, dev)
+    z = normal(model.seed + int(zred * 1000), tuple(ndens.shape), dtype, dev,
+               offset=row0 * int(np.prod(ndens.shape[1:])))
     return torch.exp(mu + torch.clamp(sig, min=0.0) * z)

@@ -17,7 +17,7 @@ import numpy as np
 
 from .. import constants as const
 from ..config import RunConfig
-from ..utils.io_fortran import read_stream_cube
+from ..utils.io_fortran import read_stream_cube, read_stream_cube_slab
 from .sources import read_source_file
 
 
@@ -132,6 +132,19 @@ class NbodyAdapter:
         nd[nd <= 0.0] = 0.1 * conv
         return nd.astype(np.float32).astype(self.cfg.np_dtype)
 
+    def read_density_slab(self, redshift: float, nz: int, row0: int,
+                          nrows: int) -> np.ndarray:
+        """read_density's grid-axis-0 rows [row0, row0+nrows) only, by a
+        seek into the cube: the halo layout's per-rank read (the JAX
+        read_density_slab), with the same arithmetic."""
+        path = self.density_filename(redshift, nz)
+        conv = self.density_conversion(redshift)
+        raw = read_stream_cube_slab(path, self.cfg.mesh, np.float32, row0,
+                                    nrows, header=self.density_header)
+        nd = raw.astype(np.float64) * conv
+        nd[nd <= 0.0] = 0.1 * conv
+        return nd.astype(np.float32).astype(self.cfg.np_dtype)
+
     def read_sources(self, redshift: float, nz: int) -> np.ndarray:
         return read_source_file(self.source_filename(redshift, nz))
 
@@ -150,6 +163,13 @@ class NbodyAdapter:
                                 self.cfg.mesh, np.float32,
                                 header=True).astype(self.cfg.np_dtype)
 
+    def read_clumping_grid_slab(self, redshift: float, row0: int,
+                                nrows: int) -> np.ndarray:
+        """read_clumping_grid's rows [row0, row0+nrows) (halo layout)."""
+        return read_stream_cube_slab(
+            self.clumping_filename(redshift), self.cfg.mesh, np.float32,
+            row0, nrows, header=True).astype(self.cfg.np_dtype)
+
     def lls_filename(self, redshift: float) -> str:
         """LLS.F90:239-242."""
         return os.path.join(
@@ -164,6 +184,13 @@ class NbodyAdapter:
         return read_stream_cube(self.lls_filename(redshift),
                                 self.cfg.mesh, np.float32,
                                 header=True).astype(np.float64)
+
+    def read_lls_grid_slab(self, redshift: float, row0: int,
+                           nrows: int) -> np.ndarray:
+        """read_lls_grid's rows [row0, row0+nrows) (halo layout)."""
+        return read_stream_cube_slab(self.lls_filename(redshift),
+                                     self.cfg.mesh, np.float32, row0,
+                                     nrows, header=True).astype(np.float64)
 
 
 def test_adapter(cfg: RunConfig, num_zred: int = 15,

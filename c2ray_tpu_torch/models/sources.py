@@ -241,8 +241,11 @@ class SourceModel:
 
 
 def _gather_cells(grid, pos0: np.ndarray) -> np.ndarray:
-    """grid[pos0[:, 0], pos0[:, 1], pos0[:, 2]] on the host."""
+    """grid[pos0[:, 0], pos0[:, 1], pos0[:, 2]] on the host (a grid held
+    as slabs, parallel.layout.SlabView, reads its cells collectively)."""
     import torch
+    if hasattr(grid, "cells"):
+        return grid.cells(pos0)
     if isinstance(grid, torch.Tensor):
         idx = torch.as_tensor(pos0, dtype=torch.long, device=grid.device)
         return grid[idx[:, 0], idx[:, 1], idx[:, 2]].cpu().numpy()

@@ -341,7 +341,8 @@ def compute_columns_facemajor(cfg: RunConfig, ndhi_c: torch.Tensor,
 
 def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
                ndhi_c: torch.Tensor, nflux, sc: SweepScalars, lls_c,
-               max_shell: int, nflux_xray=None) -> SweepResult:
+               max_shell: int, nflux_xray=None,
+               row_ci: Optional[torch.Tensor] = None) -> SweepResult:
     """Vectorized rate deposition from the completed column-density field
     of one source, all fields centred on it (evolve_point.F90:151-295):
     coldensh_in = coldensh_out - cell column, shell-volume dilution, the
@@ -353,14 +354,19 @@ def _rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
     The fields may carry leading batch dimensions (a batch of windows, as
     the JAX windowed_batch vmaps this function); nflux (and nflux_xray)
     then broadcast against them, e.g. as (B, 1, 1, 1), and the losses
-    come back per window."""
+    come back per window.
+
+    row_ci: (m,) centred-frame indices of axis 0's rows, for a grid slab
+    (the domain layouts, parallel/domain.py): the fields then carry m
+    rows whose centred identity is row_ci (slab_rows).  None: all n."""
     n = cdo.shape[-1]
     c = n // 2
     pos_max = n - 1 - c
     dtype, dev = cdo.dtype, cdo.device
 
     o = torch.arange(n, device=dev) - c
-    oi = o[:, None, None]
+    oi = (o[:, None, None] if row_ci is None
+          else (row_ci.to(device=dev, dtype=o.dtype) - c)[:, None, None])
     oj = o[None, :, None]
     ok = o[None, None, :]
     cheb = torch.maximum(torch.maximum(oi.abs(), oj.abs()), ok.abs())
@@ -573,13 +579,58 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
             torch.cat(per_src)[:s])
 
 
+def slab_rows(n: int, m: int, x0: int, src_x: int) -> torch.Tensor:
+    """Centred-frame row indices of grid slab [x0, x0+m) for a source at
+    grid row src_x (the JAX slab_rows)."""
+    return (x0 + n // 2 - src_x + torch.arange(m)) % n
+
+
+def _slab_rate_pass(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
+                    ndhi: torch.Tensor, lls: Optional[torch.Tensor],
+                    pos: torch.Tensor, nflux: torch.Tensor, sc: SweepScalars,
+                    d_sweep: int, slab, nfx: Optional[torch.Tensor]):
+    """The rate pass of a batch of sources on grid rows [x0, x0+m) only,
+    one source at a time in plain torch (the JAX slab path takes the XLA
+    rate pass, not the consume kernel, sweep.py:1159): each source's
+    centred column cube cdo[i] is cut to the slab's rows, the grid-frame
+    fields to the slab and centred on axes 1 and 2.  -> (phih, phiheat)
+    summed over the batch in grid order on axes 1, 2 (m rows), and the
+    (B,) boundary and LLS losses."""
+    n = cdo.shape[-1]
+    c = n // 2
+    x0, m = slab
+    rows = torch.arange(x0, x0 + m, device=ndhi.device)
+    phih = heat = None
+    losses, lls_losses = [], []
+    for i, (px, py, pz) in enumerate(pos.tolist()):
+        row_ci = slab_rows(n, m, x0, px).to(cdo.device)
+        sh = (c - py, c - pz)
+        nd_c = torch.roll(ndhi[rows], sh, dims=(1, 2))
+        lc = (torch.roll(lls[rows], sh, dims=(1, 2)) if lls is not None
+              else None)
+        res = _rate_pass(cfg, tables, cdo[i][row_ci], nd_c, nflux[i], sc, lc,
+                         d_sweep,
+                         nflux_xray=nfx[i] if nfx is not None else None,
+                         row_ci=row_ci)
+        back = (py - c, pz - c)
+        ph = torch.roll(res.phih, back, dims=(1, 2))
+        phih = ph if phih is None else phih + ph
+        if not cfg.isothermal:
+            he = torch.roll(res.phiheat, back, dims=(1, 2))
+            heat = he if heat is None else heat + he
+        losses.append(res.photon_loss)
+        lls_losses.append(res.lls_loss)
+    return phih, heat, torch.stack(losses), torch.stack(lls_losses)
+
+
 def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
                          ndens: torch.Tensor, xh_av1: torch.Tensor,
                          srcpos: torch.Tensor, nflux: torch.Tensor,
                          sc: SweepScalars,
                          lls_grid: Optional[torch.Tensor] = None,
                          max_shell: Optional[int] = None,
-                         nflux_xray: Optional[torch.Tensor] = None):
+                         nflux_xray: Optional[torch.Tensor] = None,
+                         slab=None):
     """Sweep every source and accumulate the global rate grid
     (pass_all_sources, evolve.F90:444-495).
 
@@ -595,6 +646,11 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     srcpos: (S, 3) 0-based cell positions; nflux: (S,) in S_star units;
     nflux_xray: (S,) X-ray fluxes in pl_s_star units, or None; lls_grid:
     the (N,N,N) grid LLS columns (type 2), or None.
+    slab: (x0, m), the grid rows of the dom layout (parallel/domain.py):
+    the march stays full-cube, the rate pass runs on the m rows only, in
+    plain torch on every device (_slab_rate_pass), and the rate grids
+    come back with m rows.
+
     Returns (phih, phiheat, photon_loss, lls_loss, per_source_loss) as
     tensors on the device, without a host sync; phiheat is a 0-d zero
     when cfg is isothermal.
@@ -610,7 +666,8 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     d_sweep = min(d_sweep, min(c, cfg.max_subbox))
     # windowed dispatch: per-source work O(r^3), not O(N^3) (the
     # reference's subbox rationale, evolve_source.F90:128-212)
-    if cfg.window_sweep and max_shell is not None and 2 * d_sweep + 1 <= n - 1:
+    if (slab is None and cfg.window_sweep and max_shell is not None
+            and 2 * d_sweep + 1 <= n - 1):
         return raytrace_windowed(cfg, tables, ndens, xh_av1, srcpos, nflux,
                                  sc, radius=d_sweep, lls_grid=lls_grid,
                                  nflux_xray=nflux_xray)
@@ -628,8 +685,9 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     ndhi = neutral_density(cfg, ndens, xh_av1)
     lls = (lls_grid.to(device=dev, dtype=dtype) if lls_grid is not None
            else None)
-    phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
-    heat = (torch.zeros((n, n, n), dtype=dtype, device=dev)
+    rows = n if slab is None else slab[1]
+    phih = torch.zeros((rows, n, n), dtype=dtype, device=dev)
+    heat = (torch.zeros((rows, n, n), dtype=dtype, device=dev)
             if not cfg.isothermal
             else torch.zeros((), dtype=dtype, device=dev))
     loss = torch.zeros((), dtype=dtype, device=dev)
@@ -638,10 +696,16 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     for i in range(0, srcpos.shape[0], b):
         pos_b = srcpos[i:i + b]
         nf_b = nflux[i:i + b]
+        nfx_b = nfx[i:i + b] if nfx is not None else None
         cdo_b = compute_columns_grid(cfg, ndhi, pos_b, sc, d_sweep, lls=lls)
-        ph, he, lo, ll = consume_rates(
-            cfg, tables, cdo_b, ndhi, pos_b, nf_b, sc, d_sweep, lls_grid=lls,
-            nfx_b=nfx[i:i + b] if nfx is not None else None)
+        if slab is not None:
+            ph, he, lo, ll = _slab_rate_pass(cfg, tables, cdo_b, ndhi, lls,
+                                             pos_b, nf_b, sc, d_sweep, slab,
+                                             nfx_b)
+        else:
+            ph, he, lo, ll = consume_rates(
+                cfg, tables, cdo_b, ndhi, pos_b, nf_b, sc, d_sweep,
+                lls_grid=lls, nfx_b=nfx_b)
         del cdo_b     # free this batch's cube before the next is made
         phih = phih + ph
         if he is not None:

@@ -10,10 +10,14 @@ The port's twin of c2ray_tpu/ops/window_pallas.py:
                                           rate cube added into the padded
                                           accumulator at its corner
 
-The padded field and the accumulator are exactly (n+2r)^3: the TPU's
-covering blocks, lane and sublane margins and rotates do not carry over.
-fold_padded_acc folds the accumulator's r-wide ring back mod n once per
-pass, in plain torch (plain jnp in the JAX package too).
+The padded field and the accumulator are exactly (n+2r)^3 on the cube,
+and (m+2r, n+2r, n+2r) on the halo layout's slab of m rows
+(parallel/domain.py): the kernels take axis 0's extent apart from that
+of axes 1 and 2.  The TPU's covering blocks, lane and sublane margins
+and rotates do not carry over.  fold_padded_acc folds the accumulator's
+r-wide ring back mod n once per pass, in plain torch (plain jnp in the
+JAX package too); on the slab it folds axes 1 and 2, and axis 0's ring
+goes to the neighbouring slabs (WindowedHaloSweeper.ring_fold).
 
 Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
@@ -36,30 +40,34 @@ _SCATTER_LIMIT: dict = {}     # device index -> K5's windows per launch
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "window_gather": ("window", "c2r_window_gather",
-                      [_vp, _i, _vp, _i, _i, _vp, _vp]),
+                      [_vp, _i, _i, _vp, _i, _i, _vp, _vp]),
     "window_scatter": ("window", "c2r_window_scatter_add",
-                       [_vp, _i, _vp, _i, _i, _vp, _vp]),
+                       [_vp, _i, _i, _vp, _i, _i, _vp, _vp]),
     # the most windows one scatter-add launch takes on the current device
     "window_scatter_max": ("window", "c2r_window_scatter_max_windows", []),
 }
 
 
-def padded_acc_shape(n: int, r: int) -> Tuple[int, int, int]:
-    """The padded field's and the accumulator's shape: (n+2r)^3."""
-    return (n + 2 * r,) * 3
+def padded_acc_shape(n: int, r: int,
+                     rows: Optional[int] = None) -> Tuple[int, int, int]:
+    """The padded field's and the accumulator's shape: (n+2r)^3, or
+    (rows+2r, n+2r, n+2r) on a slab of `rows` grid rows."""
+    return (n + 2 * r if rows is None else rows + 2 * r,
+            n + 2 * r, n + 2 * r)
 
 
-def fold_padded_acc(acc_pad: torch.Tensor, n: int,
-                    radius: int) -> torch.Tensor:
+def fold_padded_acc(acc_pad: torch.Tensor, n: int, radius: int,
+                    axes=(0, 1, 2)) -> torch.Tensor:
     """Fold the r-wide pad ring of a padded accumulator back into the
-    (n,n,n) grid with periodic wrapping, axis by axis: the low pad adds
-    to the high end, the high pad to the low end (the JAX
-    fold_padded_acc)."""
+    grid with periodic wrapping, axis by axis over `axes`: the low pad
+    adds to the high end, the high pad to the low end (the JAX
+    fold_padded_acc).  axes=(1, 2) folds a slab's accumulator on its
+    periodic axes only."""
     r = radius
     a = acc_pad
     if r == 0:
         return a
-    for ax in range(3):
+    for ax in axes:
         core = a.narrow(ax, r, n).clone()
         core.narrow(ax, n - r, r).add_(a.narrow(ax, 0, r))
         core.narrow(ax, 0, r).add_(a.narrow(ax, n + r, r))
@@ -68,15 +76,15 @@ def fold_padded_acc(acc_pad: torch.Tensor, n: int,
 
 
 def _check_windows(field_pad: torch.Tensor, pos: torch.Tensor, p: int):
-    m = field_pad.shape[0]
+    m0, m = field_pad.shape[0], field_pad.shape[-1]
     b = pos.shape[0]
-    _check_cuda("field_pad", field_pad, torch.float32, (m, m, m))
+    _check_cuda("field_pad", field_pad, torch.float32, (m0, m, m))
     _check_cuda("pos", pos, torch.int32, (b, 3))
     if pos.device != field_pad.device:
         raise ValueError("pos and field_pad must be on one device")
-    if not 1 <= p <= m or b < 1:
+    if not 1 <= p <= min(m0, m) or b < 1:
         raise ValueError(f"{b} windows of extent {p} in a padded field of "
-                         f"extent {m}")
+                         f"shape {tuple(field_pad.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -93,8 +101,9 @@ def window_gather_reference(field_pad: torch.Tensor, pos: torch.Tensor,
 
 def window_gather(field_pad: torch.Tensor, pos: torch.Tensor,
                   radius: int) -> torch.Tensor:
-    """(n+2r)^3 padded field + (B,3) grid cells in [0, n) -> (B,p,p,p)
-    windows, p = 2r+1; the window of cell q has its corner at q in padded
+    """(n+2r)^3 padded field, or a slab's (m+2r, n+2r, n+2r), + (B,3)
+    cells (in [0, n), or [0, m) on axis 0) -> (B,p,p,p) windows, p =
+    2r+1; the window of cell q has its corner at q in padded
     coordinates, so the source sits at its centre."""
     if field_pad.device.type == "cpu":
         return window_gather_reference(field_pad, pos, radius)
@@ -114,8 +123,8 @@ def _window_gather(field_pad: torch.Tensor, pos: torch.Tensor, radius: int,
     out = torch.empty((b, p, p, p), dtype=torch.float32,
                       device=field_pad.device)
     stream = torch.cuda.current_stream(field_pad.device).cuda_stream
-    rc = fn(field_pad.data_ptr(), field_pad.shape[0], pos.data_ptr(), b, p,
-            out.data_ptr(), stream)
+    rc = fn(field_pad.data_ptr(), field_pad.shape[0], field_pad.shape[-1],
+            pos.data_ptr(), b, p, out.data_ptr(), stream)
     _check_rc(lib, rc, "window gather")
     return out
 
@@ -206,6 +215,6 @@ def _window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
     b, p = rates.shape[0], rates.shape[1]
     lib, fn = _entry("window_scatter", _SIGNATURES, defines)
     stream = torch.cuda.current_stream(acc_pad.device).cuda_stream
-    rc = fn(acc_pad.data_ptr(), acc_pad.shape[0], pos.data_ptr(), b, p,
-            rates.data_ptr(), stream)
+    rc = fn(acc_pad.data_ptr(), acc_pad.shape[0], acc_pad.shape[-1],
+            pos.data_ptr(), b, p, rates.data_ptr(), stream)
     _check_rc(lib, rc, f"window scatter-add ({b} windows)")

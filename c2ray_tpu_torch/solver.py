@@ -25,6 +25,15 @@ Stroemgren-estimated radius on a power-of-two ladder of rungs; rungs whose
 (2r+1)^3 window fits in the grid are swept windowed, the top rung over the
 full cube, and a source whose escaping photons exceed loss_fraction of its
 flux moves one rung up for the next convergence iteration.
+
+Under a parallel layout (parallel/layout.py) the layout's injections
+take over: the raytracer (every full-cube sweep, and under a layout every
+adaptive bucket the windowed sweeper does not take, in one call at pow2
+capacity), the chemistry, the windowed-bucket sweeper and the rate
+grids' slab (rate_sharding).  Under the halo layout the state is the
+rank's slab, and every sum over the grid (the convergence sum, the
+photon audit's counts, the mean density of the initial radii) is summed
+over the ranks.
 """
 
 from __future__ import annotations
@@ -90,10 +99,24 @@ class Evolve3D:
     pass "cpu", where the sweep runs its plain PyTorch versions.  cool:
     the cooling table (ops.thermal.setup_cool), which a non-isothermal
     cfg needs.
+
+    The injections of a parallel layout (parallel/layout.LayoutRuntime
+    builds them; the JAX twin's arguments):
+      raytracer      replaces ops.sweep.raytrace_all_sources, with its
+                     signature (parallel/source_shard.sharded_raytracer,
+                     parallel/domain.domain_sharded_raytracer,
+                     halo_sharded_raytracer);
+      chemistry      replaces ops.chemistry.global_chemistry, with its
+                     signature (parallel/domain.sharded_chemistry);
+      windowed       sweeps the adaptive windowed buckets it supports()
+                     (WindowedShardedSweeper, WindowedHaloSweeper);
+      rate_sharding  a parallel.layout.SlabSharding: the rate grids are
+                     the rank's x-slab, and with .state the state is too.
     """
 
     def __init__(self, cfg: RunConfig, tables: RadTables, device=None,
-                 cool: Optional[CoolingTable] = None):
+                 cool: Optional[CoolingTable] = None, raytracer=None,
+                 chemistry=None, windowed=None, rate_sharding=None):
         self.device = resolve_device(device)
         check_supported(cfg, self.device)
         if not cfg.isothermal and cool is None:
@@ -107,6 +130,30 @@ class Evolve3D:
         # per-timestep cache of padded per-bucket device source arrays,
         # rebuilt only when promotions change the assignment
         self._abucket_cache = (None, {})
+        self._custom_raytracer = raytracer is not None
+        self._rt = raytracer if raytracer is not None else \
+            raytrace_all_sources
+        self._chem = chemistry if chemistry is not None else \
+            global_chemistry
+        self._windowed = windowed
+        self._rate_sharding = rate_sharding
+
+    def _gsum(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-rank sums over the state's grid -> sums over the whole grid
+        (the identity unless the state is a slab)."""
+        if self._rate_sharding is None:
+            return t
+        return self._rate_sharding.grid_sum(t)
+
+    def _counts(self, ndens, xh1, t_av, clump) -> GridCounts:
+        """grid_counts over the whole grid."""
+        gc = grid_counts(self.cfg, ndens, xh1, t_av, clump,
+                         compressed=self.cfg.compressed_xfrac)
+        if self._rate_sharding is None or not self._rate_sharding.state:
+            return gc
+        return GridCounts(*self._gsum(torch.stack(
+            [torch.as_tensor(v, dtype=ndens.dtype, device=ndens.device)
+             for v in gc])))
 
     # ------------------------------------------------------------------
     def _radius_ladder(self):
@@ -190,12 +237,14 @@ class Evolve3D:
 
     def _adaptive_sweep(self, ndens, xh_av, srcpos_np, nflux_np, sc, assign,
                         lls_grid=None, nfx_np=None):
-        """Sweep the sources rung by rung (the JAX _adaptive_sweep without
-        its injected-raytracer branches): windowed rungs in fixed-size
-        batches through ops.sweep.windowed_batch into one padded
-        accumulator per rung, folded into the rate grid at the rung's end;
-        the full-cube rung in fixed-size chunks through
-        raytrace_all_sources.  Non-isothermally the heating rates go the
+        """Sweep the sources rung by rung (the JAX _adaptive_sweep):
+        windowed rungs in fixed-size batches through
+        ops.sweep.windowed_batch into one padded accumulator per rung,
+        folded into the rate grid at the rung's end; the full-cube rung in
+        fixed-size chunks through raytrace_all_sources.  Under a layout the
+        windowed sweeper takes the rungs it supports, one call a rung, and
+        the injected raytracer every other rung in one call at pow2
+        capacity.  Non-isothermally the heating rates go the
         same way into a second accumulator.  A grid LLS cube takes each
         windowed rung's pad and its own gathers; the X-ray fluxes ride
         each rung's bucket arrays, padded with zeros as the fluxes are.
@@ -209,8 +258,10 @@ class Evolve3D:
         dtype, dev = cfg.torch_dtype, self.device
         n = cfg.mesh[0]
         iso = cfg.isothermal
-        phih = torch.zeros((n, n, n), dtype=dtype, device=dev)
-        heat = torch.zeros((n, n, n) if not iso else (), dtype=dtype,
+        shape = ((n, n, n) if self._rate_sharding is None
+                 else (self._rate_sharding.rows[1], n, n))
+        phih = torch.zeros(shape, dtype=dtype, device=dev)
+        heat = torch.zeros(shape if not iso else (), dtype=dtype,
                            device=dev)
         loss = torch.zeros((), dtype=dtype, device=dev)
         lls_loss = torch.zeros((), dtype=dtype, device=dev)
@@ -221,7 +272,29 @@ class Evolve3D:
             if len(idx) == 0:
                 continue
             parts = []
-            if cfg.window_sweep and 2 * radius + 1 <= n - 1:
+            win_ok = cfg.window_sweep and 2 * radius + 1 <= n - 1
+            if self._custom_raytracer:
+                if (self._windowed is not None and win_ok
+                        and self._windowed.supports(cfg, radius)):
+                    ph, he, lo, ll, ps = self._windowed.sweep(
+                        cfg, self.tables, radius, ndens, xh_av, lls_grid,
+                        srcpos_np[idx], nflux_np[idx],
+                        nfx_np[idx] if nfx_np is not None else None, sc)
+                else:
+                    cap = 1 << (len(idx) - 1).bit_length()
+                    pos_p, flux_p, fx_p = self._bucket_arrays(
+                        akey, b, cap, idx, srcpos_np, nflux_np, nfx_np)
+                    ph, he, lo, ll, ps = self._rt(
+                        cfg, self.tables, ndens, xh_av, pos_p, flux_p, sc,
+                        lls_grid=lls_grid, max_shell=radius,
+                        nflux_xray=fx_p)
+                phih = phih + ph
+                if not iso:
+                    heat = heat + he
+                loss = loss + lo
+                lls_loss = lls_loss + ll
+                parts.append(ps)
+            elif win_ok:
                 ndhi_pad = windowed_prepass(cfg, ndens, xh_av, radius)
                 lls_pad = (wrap_pad(lls_grid, radius)
                            if lls_grid is not None else None)
@@ -307,20 +380,27 @@ class Evolve3D:
         cfg = self.cfg
         loss_rate = (self._loss_rate(ndens, xh_av, sc, ploss)
                      if cfg.add_photon_losses else 0.0)
-        chem = global_chemistry(cfg, dt, ndens, xh1, xh_int, xh_av, phih,
-                                phiheat, t_cur, t_av, clump, self.cool,
-                                cosmo_cool_coeff, photon_loss_rate=loss_rate)
+        chem = self._chem(cfg, dt, ndens, xh1, xh_int, xh_av, phih,
+                          phiheat, t_cur, t_av, clump, self.cool,
+                          cosmo_cool_coeff, photon_loss_rate=loss_rate)
         sum1 = torch.sum(self._dense_x1(chem.xh1_intermed))
         dl = sum1.dtype
-        scalars = [chem.conv_flag.to(dl), sum1, ploss.to(dl), llsl.to(dl)]
+        sums = [sum1]
         if with_stats:
             comp = cfg.compressed_xfrac
             ca = grid_counts(cfg, ndens, chem.xh1_intermed, chem.temper_av,
                              clump, compressed=comp)
             cr = grid_counts(cfg, ndens, chem.xh1_av, chem.temper_av, clump,
                              compressed=comp)
-            scalars += [ca.h0, ca.h1, cr.rec_rate, cr.coll_rate]
-        packed = torch.cat([torch.stack(scalars), psrc.to(dl)])
+            sums += [ca.h0, ca.h1, cr.rec_rate, cr.coll_rate]
+        # one sum over the ranks for all of them where the state is a slab
+        sums = self._gsum(torch.stack([torch.as_tensor(v, dtype=dl,
+                                                       device=sum1.device)
+                                       for v in sums]))
+        scalars = torch.cat([torch.stack([chem.conv_flag.to(dl), sums[0],
+                                          ploss.to(dl), llsl.to(dl)]),
+                             sums[1:]])
+        packed = torch.cat([scalars, psrc.to(dl)])
         return (chem.xh1_intermed, chem.xh1_av, chem.temper_intermed,
                 chem.temper_av, packed)
 
@@ -381,10 +461,8 @@ class Evolve3D:
         ndens = ndens_proper.to(device=dev, dtype=dtype)
 
         if stats is not None:
-            stats.state_before(grid_counts(cfg, ndens, state.xh1,
-                                           state.temper_av, clump,
-                                           compressed=cfg.compressed_xfrac),
-                               vol)
+            stats.state_before(self._counts(ndens, state.xh1,
+                                            state.temper_av, clump), vol)
 
         xh1 = state.xh1
         # temperatures (None when isothermal): the step-initial current
@@ -395,8 +473,14 @@ class Evolve3D:
         # (evolve.F90:140-153), or from an iteration dump (:154-158)
         if iter_restart is not None:
             def restored(key):
-                return torch.as_tensor(np.asarray(iter_restart[key]),
-                                       device=dev).to(dtype)
+                x = np.asarray(iter_restart[key])
+                rs = self._rate_sharding
+                # a whole dump cube -> this rank's rows: the state's under
+                # halo, the rate grids' under dom and halo
+                if rs is not None and x.shape[0] != rs.rows[1] and (
+                        rs.state or key in ("phih", "phiheat")):
+                    x = x[rs.rows[0]:rs.rows[0] + rs.rows[1]]
+                return torch.as_tensor(x, device=dev).to(dtype)
             xh_av = restored("xh_av")
             xh_int = restored("xh_intermed")
             niter = int(iter_restart["niter"])
@@ -460,7 +544,7 @@ class Evolve3D:
         while True:
             # convergence tests (evolve.F90:179-233)
             if sum1 is None:
-                sum1 = float(torch.sum(self._dense_x1(xh_int)))
+                sum1 = float(self._gsum(torch.sum(self._dense_x1(xh_int))))
             sum0 = float(n_cells) - sum1
             rel1 = abs(sum1 - prev_sum1) / sum1 if sum1 > 0.0 else 1.0
             rel0 = abs(sum0 - prev_sum0) / sum0 if sum0 > 0.0 else 1.0
@@ -487,9 +571,11 @@ class Evolve3D:
 
             if use_adaptive:
                 if radius_assign is None:
+                    mean = (torch.mean(ndens) if self._rate_sharding is None
+                            or not self._rate_sharding.state
+                            else self._gsum(torch.sum(ndens)) / n_cells)
                     radius_assign = self._initial_radii(
-                        nflux_np, float(torch.mean(ndens)), float(dr_proper),
-                        dt)
+                        nflux_np, float(mean), float(dr_proper), dt)
                 rungs.append(np.bincount(
                     radius_assign,
                     minlength=len(self._radius_ladder())).tolist())
@@ -498,7 +584,7 @@ class Evolve3D:
                                          sc, radius_assign, lls_t, nfx_np)
                 psrc_d = torch.cat([ps for _, ps in pending])
             else:
-                phih, phiheat, ploss_d, llsl_d, psrc_d = raytrace_all_sources(
+                phih, phiheat, ploss_d, llsl_d, psrc_d = self._rt(
                     cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc,
                     lls_grid=lls_t, nflux_xray=nfx_t)
             # the pre-chemistry iterates, for the iteration dump
@@ -548,12 +634,9 @@ class Evolve3D:
         # end-of-step statistics (evolve.F90:277-279)
         if stats is not None:
             if last_stat4 is None:
-                comp = cfg.compressed_xfrac
-                ca = grid_counts(cfg, ndens, xh1, t_av, clump,
-                                 compressed=comp)
-                cr = grid_counts(cfg, ndens, xh_av, t_av, clump,
-                                 compressed=comp)
-                stats.calculate(ca, cr, vol, dt)
+                stats.calculate(self._counts(ndens, xh1, t_av, clump),
+                                self._counts(ndens, xh_av, t_av, clump),
+                                vol, dt)
             else:
                 apply_stat4(last_stat4)
             last_report = stats.report(dt, photon_loss, lls_loss, total_flux)

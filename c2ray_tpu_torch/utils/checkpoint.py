@@ -25,20 +25,27 @@ import torch
 from ..config import RunConfig, resolve_device
 from ..models.nbody import fortran_f6_3
 from ..state import GridState
-from .io_fortran import read_sm3d
+from .io_fortran import read_sm3d, read_sm3d_slab
 
 # dump cadence (evolve.F90:259-266, clocks.f90:35)
 DUMP_INTERVAL_S = 15 * 60
 
 
 def load_slice_restart(cfg: RunConfig, results_dir: str, zred: float,
-                       device=None) -> GridState:
+                       device=None, rows=None) -> GridState:
     """xfrac_restart_init + temperature_restart_init equivalents, on
-    `device` (None: CUDA)."""
+    `device` (None: CUDA).  rows: (x0, m) reads grid rows [x0, x0+m)
+    only (a halo-layout slab, the JAX _restart_sharded)."""
     dev = resolve_device(device)
     zs = fortran_f6_3(zred)
-    xh1 = read_sm3d(os.path.join(results_dir, f"xfrac3D_{zs}.bin"),
-                    np.float64, expect_mesh=cfg.mesh)
+
+    def read(name, dtype):
+        path = os.path.join(results_dir, f"{name}_{zs}.bin")
+        if rows is None:
+            return read_sm3d(path, dtype, expect_mesh=cfg.mesh)
+        return read_sm3d_slab(path, dtype, cfg.mesh, *rows)
+
+    xh1 = read("xfrac3D", np.float64)
     if cfg.compressed_xfrac:
         # encode the float64 cube BEFORE the cast to the working dtype so
         # the x_HI tail survives; a saturated cell stores +1.0, not -0.0
@@ -48,8 +55,7 @@ def load_slice_restart(cfg: RunConfig, results_dir: str, zred: float,
     xh1 = torch.from_numpy(xh1.astype(cfg.np_dtype)).to(dev)
     if cfg.isothermal:
         return GridState(xh1=xh1)
-    t = read_sm3d(os.path.join(results_dir, f"Temper3D_{zs}.bin"),
-                  np.float32, expect_mesh=cfg.mesh)
+    t = read("Temper3D", np.float32)
     t = torch.from_numpy(t.astype(cfg.np_dtype)).to(dev)
     return GridState(xh1=xh1, temper_current=t, temper_av=t,
                      temper_intermed=t)
@@ -67,6 +73,13 @@ class IterDumper:
 
     dump_dir: str = "./"
     interval_s: float = DUMP_INTERVAL_S
+    # False on every rank but the I/O rank: the reference writes the dump
+    # on rank 0 only (evolve.F90:258-265)
+    enabled: bool = True
+    # a parallel.layout.LayoutRuntime whose slabs the dump gathers: the
+    # gathers are collectives, so rank 0's wall-clock decision is
+    # broadcast and every rank joins them
+    layout: Optional[object] = None
     _ndump: int = 0
     _last_wall: float = field(default_factory=time.time)
 
@@ -76,7 +89,12 @@ class IterDumper:
         """Dump if more than interval_s wall-clock seconds have passed
         since the last dump (or since the dumper was made)."""
         now = time.time()
-        if now - self._last_wall < self.interval_s:
+        if self._collective():
+            from ..parallel import multihost as mh
+            if not mh.broadcast_obj(now - self._last_wall >= self.interval_s
+                                    if mh.is_io_rank() else None):
+                return None
+        elif not self.enabled or now - self._last_wall < self.interval_s:
             return None
         self._last_wall = now
         return self.dump(niter, photon_loss, phih, xh_av, xh_intermed,
@@ -89,16 +107,29 @@ class IterDumper:
         self._ndump += 1
         name = "iterdump2.npz" if self._ndump % 2 == 0 else "iterdump1.npz"
         path = os.path.join(self.dump_dir, name)
-        data = dict(niter=niter, photon_loss=photon_loss, phih=_host(phih),
-                    xh_av=_host(xh_av), xh_intermed=_host(xh_intermed))
+
+        def host(x):
+            return _host(self.layout.whole(x) if self.layout is not None
+                         else x)
+
+        data = dict(niter=niter, photon_loss=photon_loss, phih=host(phih),
+                    xh_av=host(xh_av), xh_intermed=host(xh_intermed))
         for key, val in (("phiheat", phiheat), ("temper", temper),
                          ("temper_av", temper_av)):
             if val is not None:
-                data[key] = _host(val)
+                data[key] = host(val)
+        if not self.enabled:
+            return None           # joined the gathers; rank 0 writes
         tmp = path + ".tmp.npz"   # the .npz suffix keeps np.savez's name
         np.savez(tmp, **data)
         os.replace(tmp, path)
         return path
+
+    def _collective(self) -> bool:
+        """True when the dump's gathers are collectives (slabs)."""
+        lay = self.layout
+        return (lay is not None and lay.grid is not None
+                and lay.rows is not None and lay.grid.n_dom > 1)
 
     @staticmethod
     def load(dump_dir: str, which: int = 1) -> dict:

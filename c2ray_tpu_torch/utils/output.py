@@ -5,36 +5,26 @@ PhotonCounts2.out conservation audit.  The writers take torch tensors on
 any device (or numpy arrays) and write the same bytes as the JAX twin's
 for the same values: cubes stream to the file in z-blocks of 32 planes,
 and the audit sums in float64 over the same blocks.
+
+Under a parallel layout (parallel/layout.py) every rank calls every
+writer: a grid held as slabs is gathered block by block (collectives),
+and only the I/O rank (io_enabled) opens and writes files, as the
+reference writes on rank 0 only (output.F90:179).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Optional
 
 import numpy as np
-import torch
 
 from ..config import RunConfig
 from ..models.nbody import fortran_f6_3
 from ..ops.photonstats import PhotonStatistics
+from ..parallel.layout import to_host, z_chunks
 from .io_fortran import write_sm3d_stream, write_unformatted_records
-
-
-def to_host(x) -> np.ndarray:
-    """A tensor (any device) or array as a host numpy array."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
-def z_chunks(arr, k_chunk: int = 32) -> Iterator[np.ndarray]:
-    """Host (N1, N2, kc) z-blocks of a grid, in ascending z: the form
-    write_sm3d_stream takes, one block on the host at a time."""
-    n3 = arr.shape[2]
-    for k0 in range(0, n3, k_chunk):
-        yield to_host(arr[:, :, k0:k0 + k_chunk])
 
 
 @dataclass
@@ -44,12 +34,18 @@ class OutputWriter:
     cfg: RunConfig
     results_dir: str = "./results/"
     streams: tuple = (0, 1, 1, 0, 0)      # output.F90:47
+    # a parallel.layout.LayoutRuntime whose slabs the writers gather, and
+    # False on every rank but the I/O rank (no files opened or written)
+    layout: Optional[object] = None
+    io_enabled: bool = True
     _pc1: Optional[object] = None
     _pc2: Optional[object] = None
 
     def setup(self) -> None:
         """setup_output (output.F90:61-120): open the photon-count files
         and write their headers."""
+        if not self.io_enabled:
+            return
         os.makedirs(self.results_dir, exist_ok=True)
         self._pc1 = open(os.path.join(self.results_dir, "PhotonCounts.out"),
                          "a")
@@ -81,8 +77,10 @@ class OutputWriter:
     def write_stream1(self, zred, x_coords, x1_line, t_line, nd_line):
         """Axis profile through the first source (output.F90:229-280),
         from the 1-D lines through the source's row."""
-        x1_line, nd_line = to_host(x1_line), to_host(nd_line)
-        t_line = to_host(t_line) if t_line is not None else None
+        x1_line, nd_line = self._host(x1_line), self._host(nd_line)
+        t_line = self._host(t_line) if t_line is not None else None
+        if not self.io_enabled:
+            return
         with open(self._path("Ifront1_", zred, ".dat"), "w") as f:
             for i in range(self.cfg.mesh[0]):
                 x1 = float(x1_line[i])
@@ -91,8 +89,19 @@ class OutputWriter:
                 f.write(f"{x_coords[i]:10.3e} {1.0 - x1:10.3e} {x1:10.3e} "
                         f"{t:10.3e} {float(nd_line[i]):10.3e}\n")
 
+    def _host(self, x) -> np.ndarray:
+        """A line or plane on the host, gathered first when it is a slab
+        of the layout (a collective)."""
+        return to_host(self.layout.whole(x) if self.layout is not None
+                       else x)
+
     def _write_cube(self, path, arr, dtype):
-        write_sm3d_stream(path, tuple(arr.shape), dtype, z_chunks(arr))
+        chunks = z_chunks(arr, layout=self.layout)
+        if self.io_enabled:
+            write_sm3d_stream(path, tuple(self.cfg.mesh), dtype, chunks)
+        else:
+            for _ in chunks:        # join the gathers; rank 0 writes
+                pass
 
     def write_stream2(self, zred, xh1, temper=None):
         """Full ionization cube, dp (+ temperature cube, sp)
@@ -113,15 +122,19 @@ class OutputWriter:
 
     def _midplane_cuts(self, arr):
         n1, n2, n3 = self.cfg.mesh
-        return [("xy", np.asarray(to_host(arr[:, :, n3 // 2 - 1]),
+        yz = (self.layout.row(arr, n1 // 2 - 1) if self.layout is not None
+              else arr[n1 // 2 - 1, :, :])
+        return [("xy", np.asarray(self._host(arr[:, :, n3 // 2 - 1]),
                                   np.float32)),
-                ("xz", np.asarray(to_host(arr[:, n2 // 2 - 1, :]),
+                ("xz", np.asarray(self._host(arr[:, n2 // 2 - 1, :]),
                                   np.float32)),
-                ("yz", np.asarray(to_host(arr[n1 // 2 - 1, :, :]),
-                                  np.float32))]
+                ("yz", np.asarray(to_host(yz), np.float32))]
 
     def _write_cuts(self, base, zred, arr):
-        for name, plane in self._midplane_cuts(arr):
+        cuts = self._midplane_cuts(arr)
+        if not self.io_enabled:
+            return
+        for name, plane in cuts:
             hdr = np.asarray(plane.shape, np.int32).tobytes()
             write_unformatted_records(self._path(f"{base}{name}_", zred,
                                                  ".bin"),
@@ -171,7 +184,8 @@ class OutputWriter:
         # float64 partial sums per z-block (a whole-cube float32 sum
         # drifts at ~1e9 cells), in the JAX twin's blocks and order
         ndx = sx = snd = 0.0
-        for nd_b, x_b in zip(z_chunks(ndens), z_chunks(xh1)):
+        for nd_b, x_b in zip(z_chunks(ndens, layout=self.layout),
+                             z_chunks(xh1, layout=self.layout)):
             nd64 = np.asarray(nd_b, np.float64)
             x64 = np.asarray(x_b, np.float64)
             ndx += float((nd64 * x64).sum())

@@ -370,13 +370,19 @@ def test_cli_against_jax(tmp_path, case):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--layout", "src"], ["--layout", "halo"], ["--shard-sources"],
-    ["--dom-devices", "2"],
+    ["--layout", "src", "--src-devices", "2"],
+    ["--layout", "halo", "--dom-devices", "2"],
+    ["--shard-sources", "--src-devices", "2"],
+    ["--layout", "dom", "--dom-devices", "2"],
 ])
 def test_cli_multi_device_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        port_main(["--mesh", "8", "--device", "cpu",
-                   "--results-dir", str(tmp_path) + "/"] + flags)
+    """A layout that asks for more ranks than the run has (one process,
+    no C2RAY_* environment) raises; it does not run on fewer."""
+    (tmp_path / "input.txt").write_text("n\nn\n1\n7\n2\n1\n")
+    with pytest.raises(ValueError, match="rank grid needs 2 ranks, the "
+                                         "run has 1"):
+        port_main([str(tmp_path / "input.txt"), "--mesh", "8", "--device",
+                   "cpu", "--results-dir", str(tmp_path) + "/"] + flags)
 
 
 def test_cli_needs_a_card_or_the_cpu(tmp_path):

@@ -211,7 +211,13 @@ NEW_MODULES = ["c2ray_tpu_torch.__main__", "c2ray_tpu_torch.driver",
                "c2ray_tpu_torch.utils.output",
                "c2ray_tpu_torch.utils.checkpoint",
                "c2ray_tpu_torch.utils.clocks",
-               "c2ray_tpu_torch.utils.report_memory"]
+               "c2ray_tpu_torch.utils.report_memory",
+               "c2ray_tpu_torch.parallel.multihost",
+               "c2ray_tpu_torch.parallel.layout",
+               "c2ray_tpu_torch.parallel.source_shard",
+               "c2ray_tpu_torch.parallel.domain",
+               "c2ray_tpu_torch.parallel.launch",
+               "c2ray_tpu_torch.ops.sweep_sharded"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
