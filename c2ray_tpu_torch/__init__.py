@@ -22,8 +22,10 @@ set_lls and set_lls_device set up per redshift; X-ray sources
 (compress_xh, xh1_of, xh0_of) and add_photon_losses.  The parallel
 layouts (parallel/: --layout src|dom|halo, one process per rank over
 torch.distributed) inject their sweeps and chemistry into Evolve3D.
-tools.py and float64 or table rates on CUDA are not ported yet
-(ROADMAP.md).
+Every kernel has float32 and float64 builds, and the rate deposition
+mixture and table-rate builds, so float64 and rate_eval "table" run on
+the card too.  tools.py holds the post-processing tools and native/ the
+C++ reader of density cubes and source catalogs.
 """
 
 from .config import (CosmologyParams, RunConfig, SEDConfig,

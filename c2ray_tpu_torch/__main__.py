@@ -96,8 +96,9 @@ def build_driver(argv=None):
                          "reference's compressed/ variant)")
     ap.add_argument("--rate-eval", default="auto",
                     choices=["auto", "table", "expsum"],
-                    help="photoionization-rate evaluation path (table "
-                         "rates run on the CPU only)")
+                    help="photoionization-rate evaluation path (auto: "
+                         "the mixture in float32, the tables in float64; "
+                         "both run on the card and on the CPU)")
     ap.add_argument("--sweep-backend", default="facemajor",
                     choices=["facemajor", "grid", "pallas"],
                     help="the JAX package's march backend; the port has one "

@@ -68,9 +68,21 @@
 // outside [0, m0-p] x [0, m-p]^2 is in no list and writes nothing, so a
 // bad position cannot write outside the accumulator (the callers check
 // positions on the host).
+//
+// Element type (real.cuh): float32, or float64 in the build with
+// -DC2R_F64.  The gather is a copy in either.  The scatter-add's staging
+// follows the element: cp.async copies 8-byte terms, a batch of terms
+// takes 32 KB of shared memory instead of 16, so the list has less room
+// and the build exports its own window limit
+// (c2r_window_scatter_max_windows), and the kernel may hold 64 registers
+// (four blocks per SM) for its double sums.  The owner form's fixed order
+// of adds is the same, so the f64 build too is bitwise its plain version
+// and the same from run to run.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "real.cuh"
 
 #if defined(C2R_WINDOW_GATHER_PER_CELL) || defined(C2R_WINDOW_SCATTER_ATOMIC)
 #define C2R_WINDOW_CELL_FORMS   // a first form: one thread per window cell
@@ -114,41 +126,41 @@ int blocks(size_t total) { return (int)((total + kThreads - 1) / kThreads); }
 #endif
 
 #ifdef C2R_WINDOW_GATHER_PER_CELL
-__global__ void gather_cells(const float* field, int m0, int m,
+__global__ void gather_cells(const real* field, int m0, int m,
                              const int* pos, size_t total, int p,
-                             float* out) {
+                             real* out) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const Cell cell = locate(pos, m0, m, p, idx);
-  out[idx] = cell.ok ? field[cell.pad] : 0.f;
+  out[idx] = cell.ok ? field[cell.pad] : rl(0.);
 }
 #endif
 
 // Block (window w, slab i): out[w][i][j][k] <- field[q0+i][q1+j][q2+k].
 __global__ void __launch_bounds__(kRowLanes * kRowWarps)
-gather_slabs(const float* __restrict__ field, int m0, int m,
-             const int* __restrict__ pos, int p, float* __restrict__ out) {
+gather_slabs(const real* __restrict__ field, int m0, int m,
+             const int* __restrict__ pos, int p, real* __restrict__ out) {
   const int w = blockIdx.x, i = blockIdx.y;
   const int q0 = __ldg(pos + 3 * w), q1 = __ldg(pos + 3 * w + 1),
             q2 = __ldg(pos + 3 * w + 2);
-  float* o = out + ((size_t)w * p + i) * p * p;
+  real* o = out + ((size_t)w * p + i) * p * p;
   const int tx = threadIdx.x, ty = threadIdx.y;
   if (!corner_ok(q0, q1, q2, m0, m, p)) {
     for (int j = ty; j < p; j += kRowWarps)
-      for (int k = tx; k < p; k += kRowLanes) o[j * p + k] = 0.f;
+      for (int k = tx; k < p; k += kRowLanes) o[j * p + k] = rl(0.);
     return;
   }
-  const float* src = field + ((size_t)(q0 + i) * m + q1) * m + q2;
+  const real* src = field + ((size_t)(q0 + i) * m + q1) * m + q2;
   for (int j = ty; j < p; j += kRowWarps) {
-    const float* row = src + j * m;
-    float* orow = o + j * p;
+    const real* row = src + j * m;
+    real* orow = o + j * p;
     for (int k = tx; k < p; k += kRowLanes) orow[k] = __ldg(row + k);
   }
 }
 
 #ifdef C2R_WINDOW_SCATTER_ATOMIC
-__global__ void scatter_cells(float* acc, int m0, int m, const int* pos,
-                              size_t total, int p, const float* rates) {
+__global__ void scatter_cells(real* acc, int m0, int m, const int* pos,
+                              size_t total, int p, const real* rates) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const Cell cell = locate(pos, m0, m, p, idx);
@@ -157,7 +169,8 @@ __global__ void scatter_cells(float* acc, int m0, int m, const int* pos,
 #else
 constexpr int kScatterThreads = 256;
 constexpr int kScatterWarps = kScatterThreads / 32;
-constexpr int kScatterMinBlocks = 6;  // per SM: at most 42 registers
+// per SM: at most 42 registers in float, 64 in double
+constexpr int kScatterMinBlocks = sizeof(real) == 8 ? 4 : 6;
 constexpr int kScatterCells = 2;      // a thread's cells per pass
 constexpr int kScatterTerms = 8;      // later windows' terms per batch
 
@@ -204,12 +217,12 @@ __device__ __forceinline__ bool inside(int y, int z, int p) {
 // A thread's next kScatterCells cells of the slab: their (j, k), the
 // accumulator's values and w's own terms (j = p past the last).
 __device__ __forceinline__ void load_pass(SlabCursor& cur, int p, int m,
-                                          const float* slab,
-                                          const float* own,
+                                          const real* slab,
+                                          const real* own,
                                           int (&jj)[kScatterCells],
                                           int (&kk)[kScatterCells],
-                                          float (&sum)[kScatterCells],
-                                          float (&term)[kScatterCells]) {
+                                          real (&sum)[kScatterCells],
+                                          real (&term)[kScatterCells]) {
 #pragma unroll
   for (int u = 0; u < kScatterCells; ++u) {
     jj[u] = cur.j;
@@ -222,13 +235,14 @@ __device__ __forceinline__ void load_pass(SlabCursor& cur, int p, int m,
   }
 }
 
-// Copy 4 bytes from src to shared memory without a register (read false:
-// write 0.0 and read nothing).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
+// Copy one element (4 or 8 bytes) from src to shared memory without a
+// register (read false: write 0.0 and read nothing).
+__device__ __forceinline__ void copy_async(real* dst, const real* src,
                                            bool read) {
+  constexpr int kBytes = (int)sizeof(real);
   const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to),
-               "l"(src), "r"(read ? 4 : 0)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(to),
+               "l"(src), "n"(kBytes), "r"(read ? kBytes : 0)
                : "memory");
 }
 
@@ -244,13 +258,13 @@ __device__ __forceinline__ void copy_async_wait() {
 // (j, k) of this slab where (j+dy, k+dz) lies in [0, p)^2, and its term
 // is rates[off + j*p + k].
 __global__ void __launch_bounds__(kScatterThreads, kScatterMinBlocks)
-scatter_slabs(float* __restrict__ acc, int m0, int m,
+scatter_slabs(real* __restrict__ acc, int m0, int m,
               const int* __restrict__ pos, int nwin, int p,
-              const float* __restrict__ rates) {
+              const real* __restrict__ rates) {
   extern __shared__ float4 shared[];
   __shared__ int counts[2][kScatterWarps];
-  float* stage = (float*)shared + threadIdx.x;
-  int4* near = (int4*)((float*)shared +
+  real* stage = (real*)shared + threadIdx.x;
+  int4* near = (int4*)((real*)shared +
                        kScatterCells * kScatterTerms * kScatterThreads);
   const int w = blockIdx.y, i = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -258,12 +272,12 @@ scatter_slabs(float* __restrict__ acc, int m0, int m,
             q2 = __ldg(pos + 3 * w + 2);
   if (!corner_ok(q0, q1, q2, m0, m, p)) return;
   const int x = q0 + i, pp = p * p;
-  float* slab = acc + ((size_t)x * m + q1) * m + q2;
-  const float* own = rates + ((size_t)w * p + i) * pp;
+  real* slab = acc + ((size_t)x * m + q1) * m + q2;
+  const real* own = rates + ((size_t)w * p + i) * pp;
 
   SlabCursor cur(tid, p);
   int jj[kScatterCells], kk[kScatterCells];
-  float sum[kScatterCells], term[kScatterCells];
+  real sum[kScatterCells], term[kScatterCells];
   load_pass(cur, p, m, slab, own, jj, kk, sum, term);
 
   // the list: one thread per window tests it; usually nothing meets the
@@ -342,7 +356,7 @@ scatter_slabs(float* __restrict__ acc, int m0, int m,
       for (int u = 0; u < kScatterCells; ++u)
 #pragma unroll
         for (int a = 0; a < kScatterTerms; ++a) {
-          const float next =
+          const real next =
               sum[u] + stage[(u * kScatterTerms + a) * kScatterThreads];
           sum[u] = (take[u] >> a) & 1u ? next : sum[u];
         }
@@ -361,8 +375,8 @@ extern "C" {
 
 // out (B, p, p, p) <- the windows of field (m0, m, m) at the B corners
 // pos.  Returns the first CUDA error code, 0 on success.
-int c2r_window_gather(const float* field, int m0, int m, const int* pos,
-                      int nwin, int p, float* out, void* stream) {
+int c2r_window_gather(const real* field, int m0, int m, const int* pos,
+                      int nwin, int p, real* out, void* stream) {
 #ifdef C2R_WINDOW_GATHER_PER_CELL
   const size_t total = (size_t)nwin * p * p * p;
   gather_cells<<<blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
@@ -376,7 +390,8 @@ int c2r_window_gather(const float* field, int m0, int m, const int* pos,
 
 // The most windows one scatter-add launch takes on the current device
 // (0 if the device cannot be queried): the block's list, 16 bytes a
-// window, its 16 KB of terms in flight and its static shared memory must
+// window, its terms in flight (16 KB in float, 32 KB in double) and its
+// static shared memory must
 // fit the shared memory a block may opt in to, and a window is one row of
 // the grid (y <= 65535).  The caller splits a longer batch into
 // consecutive launches in window order, which add the same sums in the
@@ -393,7 +408,7 @@ int c2r_window_scatter_max_windows(void) {
       cudaFuncGetAttributes(&attr, scatter_slabs) != cudaSuccess)
     return 0;
   const long terms =
-      (long)kScatterCells * kScatterTerms * kScatterThreads * sizeof(float);
+      (long)kScatterCells * kScatterTerms * kScatterThreads * sizeof(real);
   const long fit =
       ((long)optin - (long)attr.sharedSizeBytes - terms) / (long)sizeof(int4);
   return fit < 0 ? 0 : (int)(fit < 65535 ? fit : 65535);
@@ -404,8 +419,8 @@ int c2r_window_scatter_max_windows(void) {
 // place, in window order.  Returns the first CUDA error code, 0 on
 // success (cudaErrorInvalidValue where B exceeds
 // c2r_window_scatter_max_windows()).
-int c2r_window_scatter_add(float* acc, int m0, int m, const int* pos,
-                           int nwin, int p, const float* rates,
+int c2r_window_scatter_add(real* acc, int m0, int m, const int* pos,
+                           int nwin, int p, const real* rates,
                            void* stream) {
 #ifdef C2R_WINDOW_SCATTER_ATOMIC
   const size_t total = (size_t)nwin * p * p * p;
@@ -413,7 +428,7 @@ int c2r_window_scatter_add(float* acc, int m0, int m, const int* pos,
       acc, m0, m, pos, total, p, rates);
 #else
   const size_t smem =
-      (size_t)kScatterCells * kScatterTerms * kScatterThreads * sizeof(float) +
+      (size_t)kScatterCells * kScatterTerms * kScatterThreads * sizeof(real) +
       (size_t)nwin * sizeof(int4);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -26,6 +26,17 @@ def fortran_f6_3(z: float) -> str:
     return f"{z:6.3f}".strip()
 
 
+def read_density_cube_numpy(path: str, mesh, header: bool,
+                            conv: float) -> np.ndarray:
+    """The plain version of read_density's native read (numpy): the
+    float32 cube times conv in float64, 0.1 * conv where that is <= 0,
+    stored float32."""
+    raw = read_stream_cube(path, mesh, np.float32, header=header)
+    nd = raw.astype(np.float64) * conv
+    nd[nd <= 0.0] = 0.1 * conv
+    return nd.astype(np.float32)
+
+
 @dataclass
 class NbodyAdapter:
     """Base adapter: geometry + units + file naming.
@@ -121,16 +132,17 @@ class NbodyAdapter:
     def read_density(self, redshift: float, nz: int) -> np.ndarray:
         """Read + unit-scale a density slice to *proper* cm^-3 at its
         redshift (set_density path, density_module.F90:82-125).
-        Empty cells are floored at 0.1 particles (:281).  The product is
-        taken in float64 and stored float32, the arithmetic of the JAX
-        twin's native reader (native/io_native.cpp transpose_block)."""
+        Empty cells are floored at 0.1 particles (:281).  Through the
+        native reader (c2ray_tpu_torch.native, as the JAX twin's): the
+        product taken in float64 and stored float32."""
+        from .. import native
+
         path = self.density_filename(redshift, nz)
         conv = self.density_conversion(redshift)
-        raw = read_stream_cube(path, self.cfg.mesh, np.float32,
-                               header=self.density_header)
-        nd = raw.astype(np.float64) * conv
-        nd[nd <= 0.0] = 0.1 * conv
-        return nd.astype(np.float32).astype(self.cfg.np_dtype)
+        nd = native.read_cube_f32(path, self.cfg.mesh,
+                                  header=self.density_header, conv=conv,
+                                  floor_val=0.1 * conv)
+        return nd.astype(self.cfg.np_dtype)
 
     def read_density_slab(self, redshift: float, nz: int, row0: int,
                           nrows: int) -> np.ndarray:

@@ -62,9 +62,17 @@ class SourceCatalog:
 def read_source_file(path: str, ncolumns: int = 5) -> np.ndarray:
     """Read a source list: first line = count, then `ncolumns` floats per
     line (count_or_read_in_sources, sourceprops.F90:292-325, in one
-    pass).  Short rows are padded with zeros, blank lines read as zero
-    rows and Fortran D exponents (1.0D+05) are understood: the parse of
-    the JAX twin's python reader, value for value."""
+    pass), with the native parser (c2ray_tpu_torch.native, as the JAX
+    twin's).  Short rows are padded with zeros, blank lines read as zero
+    rows and Fortran D exponents (1.0D+05) are understood."""
+    from .. import native
+
+    return native.read_source_catalog(path, ncolumns)
+
+
+def read_source_file_numpy(path: str, ncolumns: int = 5) -> np.ndarray:
+    """The plain version of read_source_file (a Python line loop): the
+    parse of the JAX twin's python reader, value for value."""
     def _f(v: str) -> float:
         try:
             return float(v)

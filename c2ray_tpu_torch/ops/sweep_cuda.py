@@ -15,22 +15,27 @@ The port's twin of c2ray_tpu/ops/sweep_pallas.py:
 Every branch of the three Pallas kernels has its build: LLS off, a scalar
 LLS column (type 1) or a grid LLS cube (type 2, has_lls) in the marches
 and the deposition; the R_max barrier (type 3) and the X-ray mixture
-(use_xray) in the deposition.
+(use_xray) in the deposition.  Each kernel is built in float32 and in
+float64, and the deposition with the exponential mixture or with the
+lookup tables of rate_eval "table" (the mode "auto" picks in float64);
+build_for maps a kernel, a dtype and the options to its build.
 
 Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
 kernel or raises; it never falls back.  LAUNCHES counts the kernel launches
-each wrapper makes, by build: "march" and "window_march" the marches
-without a grid LLS cube, "march_lls" and "window_march_lls" with one;
-"consume" the deposition's isothermal build without a grid LLS cube or
-X-ray, and "consume" + "_lls" (grid LLS) or "_rmax" (the R_max barrier of
-type 3) + "_xray" + "_heat" the others.
+each wrapper makes, by build (build_for's key): "march" and
+"window_march" the marches without a grid LLS cube, + "_lls" with one;
+"consume" the deposition's isothermal mixture build without a grid LLS
+cube or X-ray, + "_table" (table rates), "_lls" (grid LLS) or "_rmax"
+(the R_max barrier of type 3), "_xray" and "_heat" the others; every
+float64 build has "_f64" after the kernel's name (and "_table"), as
+"march_f64_lls" or "consume_table_f64_heat".
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,40 +43,87 @@ from .. import _build
 from ..config import RunConfig
 from .sweep import (MAX_BATCH, SweepScalars, _rate_pass, march_columns,
                     march_windows, roll3)
-from .tables import RadTables, use_expsum
+from .tables import RadTables, thin_limits, use_expsum
+
+# the kernel builds' element types: (dtype, LAUNCHES key suffix, -D flags)
+_DTYPES = {torch.float32: ("", ()), torch.float64: ("_f64", ("C2R_F64",))}
+# the wrappers' kernels -> their csrc/ source
+_SOURCES = {"march": "march", "window_march": "march", "consume": "consume",
+            "window_gather": "window", "window_scatter": "window"}
 
 
-def _consume_key(lls: str, xray: bool, heat: bool) -> str:
+class Build(NamedTuple):
+    """One build of a kernel: the csrc/ source, its -D flags (the library
+    _build.load compiles at first use) and its LAUNCHES key."""
+
+    source: str
+    defines: tuple
+    key: str
+
+
+def _build_key(kernel: str, dtype, table=False, lls="", xray=False,
+               heat=False) -> Build:
     """lls: "" (LLS off or a scalar column), "_lls" (a grid LLS cube) or
-    "_rmax" (the R_max barrier)."""
-    return ("consume" + lls + ("_xray" if xray else "")
-            + ("_heat" if heat else ""))
+    "_rmax" (the R_max barrier, the deposition only)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernels take float32 or float64, not "
+                         f"{dtype}")
+    suffix, defines = _DTYPES[dtype]
+    if table:
+        suffix, defines = "_table" + suffix, defines + ("C2R_TABLE",)
+    key = (kernel + suffix + lls + ("_xray" if xray else "")
+           + ("_heat" if heat else ""))
+    return Build(_SOURCES[kernel], defines, key)
 
 
-LAUNCHES = {"march": 0, "march_lls": 0, "window_march": 0,
-            "window_march_lls": 0,
-            **{_consume_key(g, x, h): 0 for g in ("", "_lls", "_rmax")
-               for x in (False, True) for h in (False, True)}}
+def build_for(kernel: str, dtype, cfg: Optional[RunConfig] = None,
+              grid_lls: bool = False, xray: bool = False) -> Build:
+    """The build that runs `kernel` ("march", "window_march", "consume",
+    "window_gather", "window_scatter") on tensors of `dtype` for cfg's
+    options: grid_lls, a grid LLS cube given (the marches and the
+    deposition); xray, X-ray fluxes given (taken where
+    cfg.sed.use_xray_sed).  The deposition takes cfg's rate mode
+    (use_expsum), R_max barrier (LLS type 3) and heat (not isothermal)."""
+    if kernel in ("window_gather", "window_scatter"):
+        return _build_key(kernel, dtype)
+    lls = "_lls" if grid_lls and _lls_mode(cfg, True) == 2 else ""
+    if kernel != "consume":
+        return _build_key(kernel, dtype, lls=lls)
+    if not lls and _rmax_on(cfg):
+        lls = "_rmax"
+    return _build_key(kernel, dtype, table=not use_expsum(cfg, dtype),
+                      lls=lls, xray=cfg.sed.use_xray_sed and xray,
+                      heat=not cfg.isothermal)
+
+
+LAUNCHES = {
+    **{_build_key(k, d, lls=g).key: 0 for k in ("march", "window_march")
+       for d in _DTYPES for g in ("", "_lls")},
+    **{_build_key("consume", d, t, g, x, h).key: 0 for d in _DTYPES
+       for t in (False, True) for g in ("", "_lls", "_rmax")
+       for x in (False, True) for h in (False, True)}}
 
 # the most sources one launch takes (CUDA's grid z extent)
 MAX_WINDOWS = 65535
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# kernel -> (library, C symbol, argument types)
+_vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# kernel -> (library, C symbol, argument types); every build of a library
+# has the same C signature (scalars as doubles, arrays as pointers)
 _SIGNATURES = {
     "march": ("march", "c2r_march",
-              [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp,
+              [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _d, _d, _i, _vp, _vp,
                _vp, _vp, _vp]),
     "window_march": ("march", "c2r_march_windows",
-                     [_vp, _vp, _i, _i, _i, _f, _f, _i, _vp, _vp, _vp,
+                     [_vp, _vp, _i, _i, _i, _d, _d, _i, _vp, _vp, _vp,
                       _vp]),
     # 1 if the window march runs its cluster form at window extent p, 0
     # for the per-shell form: the kernel's own choice
     "window_march_cluster": ("march", "c2r_march_windows_cluster", [_i]),
     "consume": ("consume", "c2r_consume",
-                [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _vp,
-                 _vp, _i, _i, _i, _i, _f, _f, _f, _i, _i, _i, _f, _f, _vp,
-                 _vp, _vp, _vp, _vp]),
+                [_vp, _vp, _vp, _vp, _vp, _vp,
+                 ctypes.POINTER(ctypes.c_void_p), _i, _i, _i, _i, _i, _i,
+                 _d, _d, _d, _i, _i, _i, _d, _d, _d, _d, _d, _d, _vp, _vp,
+                 _vp, _vp, _vp]),
     # blocks of the consume kernel's cell launch at mesh n: the size of
     # its loss partials, from the kernel's own launch shape
     "consume_nblocks": ("consume", "c2r_consume_nblocks", [_i]),
@@ -109,14 +161,10 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
 def _slice_options(cfg: RunConfig) -> None:
     """The options the kernels implement: isothermal or not (the consume
     kernel's heat build), LLS off or types 1-3, X-ray sources or not,
-    mixture (expsum) rates in float32."""
+    mixture or table rates, float32 or float64 (build_for)."""
     if cfg.use_lls and cfg.type_of_lls not in (1, 2, 3):
         raise NotImplementedError(
             f"LLS type {cfg.type_of_lls} has no CUDA kernel")
-    if not use_expsum(cfg, torch.float32):
-        raise NotImplementedError(
-            f"rate_eval={cfg.rate_eval!r} runs only on the CPU; the CUDA "
-            "kernel evaluates the exponential mixture")
 
 
 def _rmax_on(cfg: RunConfig) -> bool:
@@ -162,7 +210,7 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
                                               max_shell, lls)
     out, launches = _grid_march(cfg, ndhi, srcpos_b, sc, max_shell,
                                 lls=lls)
-    LAUNCHES["march_lls" if _lls_mode(cfg, lls) == 2 else "march"] += \
+    LAUNCHES[build_for("march", ndhi.dtype, cfg, lls is not None).key] += \
         launches
     return out
 
@@ -170,17 +218,19 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
 def _grid_march(cfg: RunConfig, ndhi: torch.Tensor, srcpos_b: torch.Tensor,
                 sc: SweepScalars, max_shell: int, defines=(),
                 lls: Optional[torch.Tensor] = None):
-    """Launch K1 (from the library built with `defines`, the shipped one
-    by default) -> (out, kernel launches made)."""
+    """Launch K1 (the build of ndhi's dtype, with the timing `defines`
+    added, none by default) -> (out, kernel launches made)."""
     n = ndhi.shape[0]
     b = srcpos_b.shape[0]
-    _check_cuda("ndhi", ndhi, torch.float32, (n, n, n))
+    build = build_for("march", ndhi.dtype, cfg, lls is not None)
+    dtype = ndhi.dtype
+    _check_cuda("ndhi", ndhi, dtype, (n, n, n))
     _check_cuda("srcpos_b", srcpos_b, torch.int32, (b, 3))
     if srcpos_b.device != ndhi.device:
         raise ValueError("srcpos_b and ndhi must be on one device")
     mode = _lls_mode(cfg, lls)
     if mode == 2:
-        _check_cuda("lls", lls, torch.float32, (n, n, n))
+        _check_cuda("lls", lls, dtype, (n, n, n))
         if lls.device != ndhi.device:
             raise ValueError("lls and ndhi must be on one device")
     if not 1 <= b <= MAX_BATCH:
@@ -188,14 +238,13 @@ def _grid_march(cfg: RunConfig, ndhi: torch.Tensor, srcpos_b: torch.Tensor,
                          f"1..{MAX_BATCH}")
     _slice_options(cfg)
     nshell = _shells(max_shell, n)
-    lib, fn = _entry("march", defines=defines)
-    out = _columns_out((b, n, n, n), nshell, ndhi.device)
+    lib, fn = _entry("march", defines=build.defines + tuple(defines))
+    out = _columns_out((b, n, n, n), nshell, ndhi)
     # zero-filled: a shell reads corners just outside the previous shell's
     # live square (with zero weight), which must hold finite values
-    planes = torch.zeros((2, b, 6, n, n), dtype=torch.float32,
-                         device=ndhi.device)
+    planes = torch.zeros((2, b, 6, n, n), dtype=dtype, device=ndhi.device)
     # the z faces' cells, z-major, before their transpose into out
-    zst = torch.empty((b, n, n, n), dtype=torch.float32, device=ndhi.device)
+    zst = torch.empty((b, n, n, n), dtype=dtype, device=ndhi.device)
     ndhi_zt = ndhi.permute(2, 0, 1).contiguous()     # [z][x][y]
     # the LLS cube's z-major copy, made as the density's
     lls_zt = lls.permute(2, 0, 1).contiguous() if mode == 2 else None
@@ -217,12 +266,12 @@ def _shells(max_shell: int, n: int) -> int:
     return min(max_shell, n // 2)
 
 
-def _columns_out(shape, nshell: int, dev) -> torch.Tensor:
-    """The march's output cube: cells beyond a capped radius are never
-    written and must read zero, as in the plain version."""
-    if nshell < shape[-1] // 2:
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-    return torch.empty(shape, dtype=torch.float32, device=dev)
+def _columns_out(shape, nshell: int, like: torch.Tensor) -> torch.Tensor:
+    """The march's output cube, of like's dtype and device: cells beyond a
+    capped radius are never written and must read zero, as in the plain
+    version."""
+    make = torch.zeros if nshell < shape[-1] // 2 else torch.empty
+    return make(shape, dtype=like.dtype, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -250,21 +299,22 @@ def compute_columns_windows(cfg: RunConfig, wins: torch.Tensor,
                                                  lls_wins)
     out, launches = _window_march(cfg, wins, sc, max_shell,
                                   lls_wins=lls_wins)
-    LAUNCHES["window_march_lls" if _lls_mode(cfg, lls_wins) == 2
-             else "window_march"] += launches
+    LAUNCHES[build_for("window_march", wins.dtype, cfg,
+                       lls_wins is not None).key] += launches
     return out
 
 
 def _window_march(cfg: RunConfig, wins: torch.Tensor, sc: SweepScalars,
                   max_shell: int, defines=(),
                   lls_wins: Optional[torch.Tensor] = None):
-    """Launch K3 (from the library built with `defines`, the shipped one
-    by default) -> (out, kernel launches made)."""
+    """Launch K3 (the build of wins' dtype, with the timing `defines`
+    added, none by default) -> (out, kernel launches made)."""
     b, p = wins.shape[0], wins.shape[-1]
-    _check_cuda("wins", wins, torch.float32, (b, p, p, p))
+    build = build_for("window_march", wins.dtype, cfg, lls_wins is not None)
+    _check_cuda("wins", wins, wins.dtype, (b, p, p, p))
     mode = _lls_mode(cfg, lls_wins)
     if mode == 2:
-        _check_cuda("lls_wins", lls_wins, torch.float32, (b, p, p, p))
+        _check_cuda("lls_wins", lls_wins, wins.dtype, (b, p, p, p))
         if lls_wins.device != wins.device:
             raise ValueError("lls_wins and wins must be on one device")
     if not 1 <= b <= MAX_WINDOWS:
@@ -272,11 +322,11 @@ def _window_march(cfg: RunConfig, wins: torch.Tensor, sc: SweepScalars,
                          f"1..{MAX_WINDOWS}")
     _slice_options(cfg)
     nshell = _shells(max_shell, p)
-    lib, fn = _entry("window_march", defines=defines)
-    out = _columns_out((b, p, p, p), nshell, wins.device)
+    lib, fn = _entry("window_march", defines=build.defines + tuple(defines))
+    out = _columns_out((b, p, p, p), nshell, wins)
     # the per-shell form's ping-pong planes (the cluster form keeps its
     # planes in shared memory and ignores these)
-    planes = torch.empty((2, b, 6, p, p), dtype=torch.float32,
+    planes = torch.empty((2, b, 6, p, p), dtype=wins.dtype,
                          device=wins.device)
     stream = torch.cuda.current_stream(wins.device).cuda_stream
     launches = ctypes.c_int(0)
@@ -320,14 +370,6 @@ def consume_rates_reference(cfg: RunConfig, tables: RadTables,
     return phih, phiheat, torch.stack(loss), torch.stack(lls)
 
 
-def consume_key(cfg: RunConfig, lls_grid, nfx_b) -> str:
-    """The LAUNCHES key of the deposition build these arguments run."""
-    lls = ("_lls" if _lls_mode(cfg, lls_grid) == 2
-           else "_rmax" if _rmax_on(cfg) else "")
-    return _consume_key(lls, cfg.sed.use_xray_sed and nfx_b is not None,
-                        not cfg.isothermal)
-
-
 def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
                   ndhi: torch.Tensor, srcpos_b: torch.Tensor,
                   nflux_b: torch.Tensor, sc: SweepScalars, max_shell: int,
@@ -340,42 +382,51 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     non-isothermal cfg runs the kernel's heat build.  lls_grid: the
     (N,N,N) grid-frame LLS columns (type 2), or None; nfx_b: (B,) X-ray
     fluxes, used when cfg.sed.use_xray_sed, or None.  LLS type 3 stops
-    each ray at sc.rmax2_cells."""
+    each ray at sc.rmax2_cells.  The build follows cdo_b's dtype and
+    cfg's rate mode (build_for)."""
     if cdo_b.device.type == "cpu":
         return consume_rates_reference(cfg, tables, cdo_b, ndhi, srcpos_b,
                                        nflux_b, sc, max_shell, lls_grid,
                                        nfx_b)
     _slice_options(cfg)
-    b, n = cdo_b.shape[0], cdo_b.shape[1]
-    _check_cuda("cdo_b", cdo_b, torch.float32, (b, n, n, n))
-    _check_cuda("ndhi", ndhi, torch.float32, (n, n, n))
-    _check_cuda("srcpos_b", srcpos_b, torch.int32, (b, 3))
-    _check_cuda("nflux_b", nflux_b, torch.float32, (b,))
-    k = tables.exp_a.shape[0]
-    _check_cuda("tables.exp_a", tables.exp_a, torch.float32, (k,))
-    _check_cuda("tables.exp_w", tables.exp_w, torch.float32, (k,))
-    heat = not cfg.isothermal
-    if heat:
-        _check_cuda("tables.heat_exp_w", tables.heat_exp_w, torch.float32,
-                    (k,))
-    mode = _lls_mode(cfg, lls_grid)
+    dtype = cdo_b.dtype
     xray = cfg.sed.use_xray_sed and nfx_b is not None
-    kx = tables.xray_exp_a.shape[0] if xray else 0
-    checks = [("ndhi", ndhi), ("srcpos_b", srcpos_b), ("nflux_b", nflux_b),
-              ("tables", tables.exp_a)]
+    build = build_for("consume", dtype, cfg, lls_grid is not None, xray)
+    table = not use_expsum(cfg, dtype)
+    heat = not cfg.isothermal
+    mode = _lls_mode(cfg, lls_grid)
+    b, n = cdo_b.shape[0], cdo_b.shape[1]
+    _check_cuda("cdo_b", cdo_b, dtype, (b, n, n, n))
+    _check_cuda("ndhi", ndhi, dtype, (n, n, n))
+    _check_cuda("srcpos_b", srcpos_b, torch.int32, (b, 3))
+    _check_cuda("nflux_b", nflux_b, dtype, (b,))
+    checks = [("ndhi", ndhi), ("srcpos_b", srcpos_b), ("nflux_b", nflux_b)]
     if mode == 2:
-        _check_cuda("lls_grid", lls_grid, torch.float32, (n, n, n))
+        _check_cuda("lls_grid", lls_grid, dtype, (n, n, n))
         checks.append(("lls_grid", lls_grid))
     if xray:
-        _check_cuda("nfx_b", nfx_b, torch.float32, (b,))
-        _check_cuda("tables.xray_exp_a", tables.xray_exp_a, torch.float32,
-                    (kx,))
-        _check_cuda("tables.xray_exp_w", tables.xray_exp_w, torch.float32,
-                    (kx,))
-        if heat:
-            _check_cuda("tables.xray_heat_exp_w", tables.xray_heat_exp_w,
-                        torch.float32, (kx,))
-        checks += [("nfx_b", nfx_b), ("xray tables", tables.xray_exp_a)]
+        _check_cuda("nfx_b", nfx_b, dtype, (b,))
+        checks.append(("nfx_b", nfx_b))
+    # the rate tables this build reads, in csrc/consume.cu's order
+    if table:
+        names = ["photo_thick", "photo_thin"] + (
+            ["heat_thick", "heat_thin"] if heat else [None, None])
+        names += ([f"xray_{x}" if x else None for x in names] if xray
+                  else [None] * 4)
+        k = kx = cfg.num_tau + 1
+    else:
+        names = ["exp_a", "exp_w", "heat_exp_w" if heat else None]
+        names += ([f"xray_{x}" if x else None for x in names] if xray
+                  else [None] * 3)
+        names += [None, None]
+        k = tables.exp_a.shape[0]
+        kx = tables.xray_exp_a.shape[0] if xray else 0
+    tabs = [getattr(tables, x) if x else None for x in names]
+    for name, t in zip(names, tabs):
+        if t is not None:
+            _check_cuda(f"tables.{name}", t, dtype,
+                        (kx if name.startswith("xray") else k,))
+            checks.append((f"tables.{name}", t))
     dev = cdo_b.device
     for name, t in checks:
         if t.device != dev:
@@ -383,29 +434,31 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     if not 1 <= b <= MAX_BATCH:
         raise ValueError(f"batch of {b} sources; the consume kernel takes "
                          f"1..{MAX_BATCH}")
-    lib, fn = _entry("consume")
-    nblocks = _entry("consume_nblocks")[1](n)
-    phih = torch.empty((n, n, n), dtype=torch.float32, device=dev)
-    phiheat = (torch.empty((n, n, n), dtype=torch.float32, device=dev)
+    lib, fn = _entry("consume", defines=build.defines)
+    nblocks = _entry("consume_nblocks", defines=build.defines)[1](n)
+    phih = torch.empty((n, n, n), dtype=dtype, device=dev)
+    phiheat = (torch.empty((n, n, n), dtype=dtype, device=dev)
                if heat else None)
-    partial = torch.empty((2, b, nblocks), dtype=torch.float32, device=dev)
-    loss = torch.empty((2, b), dtype=torch.float32, device=dev)
+    partial = torch.empty((2, b, nblocks), dtype=dtype, device=dev)
+    loss = torch.empty((2, b), dtype=dtype, device=dev)
     # the R_max barrier: +inf lets every ray through (no type 3)
     rmax2 = sc.rmax2_cells if _rmax_on(cfg) else float("inf")
+    photo_limit, heat_limit = thin_limits(cfg, dtype)
+    dlogtau = (cfg.maxlogtau - cfg.minlogtau) / cfg.num_tau
 
     def ptr(t, use=True):
         return t.data_ptr() if use else None
 
+    table_ptrs = (ctypes.c_void_p * 8)(*[ptr(t, t is not None)
+                                          for t in tabs])
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(cdo_b.data_ptr(), ndhi.data_ptr(), ptr(lls_grid, mode == 2),
             srcpos_b.data_ptr(), nflux_b.data_ptr(), ptr(nfx_b, xray),
-            tables.exp_a.data_ptr(), tables.exp_w.data_ptr(),
-            ptr(tables.heat_exp_w, heat), k, ptr(tables.xray_exp_a, xray),
-            ptr(tables.xray_exp_w, xray),
-            ptr(tables.xray_heat_exp_w, xray and heat), kx, b, n,
-            max_shell, sc.dr, sc.rate_scale, sc.lls_coldens, mode,
-            int(heat), int(xray), rmax2, cfg.max_coldensh, phih.data_ptr(),
-            ptr(phiheat, heat), partial.data_ptr(), loss.data_ptr(), stream)
+            table_ptrs, k, kx, cfg.num_tau, b, n, max_shell, sc.dr,
+            sc.rate_scale, sc.lls_coldens, mode, int(heat), int(xray),
+            rmax2, cfg.max_coldensh, cfg.minlogtau, dlogtau, photo_limit,
+            heat_limit, phih.data_ptr(), ptr(phiheat, heat),
+            partial.data_ptr(), loss.data_ptr(), stream)
     _check_rc(lib, rc, "consume")
-    LAUNCHES[consume_key(cfg, lls_grid, nfx_b)] += 2
+    LAUNCHES[build.key] += 2
     return phih, phiheat, loss[0], loss[1]

@@ -481,6 +481,15 @@ class PhotoRates(NamedTuple):
     heat: torch.Tensor         # heating rate of the cell / vol_ph
 
 
+def thin_limits(cfg: RunConfig, dtype: torch.dtype):
+    """(photo, heat) |dtau| limits below which photoion_rates takes the
+    optically-thin branch: in float32 they rise to 3e-3."""
+    if dtype == torch.float32:
+        return (max(cfg.tau_photo_limit, 3e-3),
+                max(cfg.tau_heat_limit, 3e-3))
+    return cfg.tau_photo_limit, cfg.tau_heat_limit
+
+
 def use_expsum(cfg: RunConfig, dtype: torch.dtype) -> bool:
     """rate_eval "expsum", or "auto" in float32: the mixture path."""
     return cfg.rate_eval == "expsum" or (cfg.rate_eval == "auto"
@@ -583,14 +592,8 @@ def photoion_rates(cfg: RunConfig, tables: RadTables, coldens_in,
     tau_in = coldens_in * sigma
     tau_out = coldens_out * sigma
     dtau = tau_out - tau_in
-    if f32:
-        photo_limit = max(cfg.tau_photo_limit, 3e-3)
-        heat_limit = max(cfg.tau_heat_limit, 3e-3)
-        tau_thin = 0.5 * (tau_in + tau_out)
-    else:
-        photo_limit = cfg.tau_photo_limit
-        heat_limit = cfg.tau_heat_limit
-        tau_thin = tau_in
+    photo_limit, heat_limit = thin_limits(cfg, coldens_in.dtype)
+    tau_thin = 0.5 * (tau_in + tau_out) if f32 else tau_in
 
     def one_source(photo_thick, photo_thin, heat_thick, heat_thin, nf):
         phi_in = nf * table_lookup(photo_thick, tau_in, cfg)

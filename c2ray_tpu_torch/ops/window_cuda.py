@@ -21,8 +21,11 @@ goes to the neighbouring slabs (WindowedHaloSweeper.ring_fold).
 
 Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
-kernel or raises; it never falls back.  LAUNCHES counts the kernel
-launches each wrapper makes.
+kernel or raises; it never falls back.  Each kernel has a float32 and a
+float64 build (sweep_cuda.build_for), taken by the tensors' dtype.
+LAUNCHES counts the kernel launches each wrapper makes, by build:
+"window_gather", "window_scatter", and "window_gather_f64",
+"window_scatter_f64".
 """
 
 from __future__ import annotations
@@ -32,10 +35,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from .sweep_cuda import _check_cuda, _check_rc, _entry
+from .sweep_cuda import _DTYPES, _check_cuda, _check_rc, _entry, build_for
 
-LAUNCHES = {"window_gather": 0, "window_scatter": 0}
-_SCATTER_LIMIT: dict = {}     # device index -> K5's windows per launch
+LAUNCHES = {build_for(k, d).key: 0 for k in ("window_gather",
+                                              "window_scatter")
+            for d in _DTYPES}
+# (device index, dtype) -> K5's windows per launch
+_SCATTER_LIMIT: dict = {}
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -78,7 +84,7 @@ def fold_padded_acc(acc_pad: torch.Tensor, n: int, radius: int,
 def _check_windows(field_pad: torch.Tensor, pos: torch.Tensor, p: int):
     m0, m = field_pad.shape[0], field_pad.shape[-1]
     b = pos.shape[0]
-    _check_cuda("field_pad", field_pad, torch.float32, (m0, m, m))
+    _check_cuda("field_pad", field_pad, field_pad.dtype, (m0, m, m))
     _check_cuda("pos", pos, torch.int32, (b, 3))
     if pos.device != field_pad.device:
         raise ValueError("pos and field_pad must be on one device")
@@ -108,19 +114,21 @@ def window_gather(field_pad: torch.Tensor, pos: torch.Tensor,
     if field_pad.device.type == "cpu":
         return window_gather_reference(field_pad, pos, radius)
     out = _window_gather(field_pad, pos, radius)
-    LAUNCHES["window_gather"] += 1
+    LAUNCHES[build_for("window_gather", field_pad.dtype).key] += 1
     return out
 
 
 def _window_gather(field_pad: torch.Tensor, pos: torch.Tensor, radius: int,
                    defines=()) -> torch.Tensor:
-    """Launch K4 (from the library built with `defines`, the shipped one
-    by default) -> the (B,p,p,p) windows."""
+    """Launch K4 (the build of field_pad's dtype, with the timing
+    `defines` added, none by default) -> the (B,p,p,p) windows."""
     p = 2 * radius + 1
     _check_windows(field_pad, pos, p)
-    lib, fn = _entry("window_gather", _SIGNATURES, defines)
+    build = build_for("window_gather", field_pad.dtype)
+    lib, fn = _entry("window_gather", _SIGNATURES,
+                     build.defines + tuple(defines))
     b = pos.shape[0]
-    out = torch.empty((b, p, p, p), dtype=torch.float32,
+    out = torch.empty((b, p, p, p), dtype=field_pad.dtype,
                       device=field_pad.device)
     stream = torch.cuda.current_stream(field_pad.device).cuda_stream
     rc = fn(field_pad.data_ptr(), field_pad.shape[0], field_pad.shape[-1],
@@ -155,30 +163,35 @@ def window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
     plain version and the same from run to run.  The kernel keeps a list
     of the batch's windows in shared memory, 16 bytes each, so one launch
     takes at most the kernel's own limit (some 13,500 windows on the
-    H100; max_windows may lower it).  A longer batch goes in consecutive
-    launches in window order (scatter_in_chunks): the same sums in the
-    same order, so the same bits."""
+    H100 in float32, less in float64; max_windows may lower it).  A
+    longer batch goes in consecutive launches in window order
+    (scatter_in_chunks): the same sums in the same order, so the same
+    bits."""
     if acc_pad.device.type == "cpu":
         return window_scatter_add_reference(acc_pad, rates, pos)
     _check_scatter(acc_pad, rates, pos)
-    limit = _scatter_limit(acc_pad.device)
+    limit = scatter_limit(acc_pad.device, acc_pad.dtype)
     if max_windows is not None:
         limit = min(limit, max_windows)
     if limit < 1:
         raise RuntimeError(f"window scatter-add: the kernel takes {limit} "
                            "windows per launch on this device")
-    LAUNCHES["window_scatter"] += scatter_in_chunks(
-        acc_pad, rates, pos, limit, _window_scatter_add)
+    LAUNCHES[build_for("window_scatter", acc_pad.dtype).key] += \
+        scatter_in_chunks(acc_pad, rates, pos, limit, _window_scatter_add)
     return acc_pad
 
 
-def _scatter_limit(dev: torch.device) -> int:
-    """The kernel's windows per launch on `dev`, asked once per device."""
-    limit = _SCATTER_LIMIT.get(dev.index)
+def scatter_limit(dev: torch.device, dtype=torch.float32) -> int:
+    """The windows per launch of the dtype's build on `dev`, asked once
+    per device and build."""
+    key = (dev.index, dtype)
+    limit = _SCATTER_LIMIT.get(key)
     if limit is None:
+        build = build_for("window_scatter", dtype)
         with torch.cuda.device(dev):
-            limit = _entry("window_scatter_max", _SIGNATURES)[1]()
-        _SCATTER_LIMIT[dev.index] = limit
+            limit = _entry("window_scatter_max", _SIGNATURES,
+                           build.defines)[1]()
+        _SCATTER_LIMIT[key] = limit
     return limit
 
 
@@ -199,7 +212,7 @@ def _check_scatter(acc_pad: torch.Tensor, rates: torch.Tensor,
                    pos: torch.Tensor) -> None:
     b, p = rates.shape[0], rates.shape[1]
     _check_windows(acc_pad, pos, p)
-    _check_cuda("rates", rates, torch.float32, (b, p, p, p))
+    _check_cuda("rates", rates, acc_pad.dtype, (b, p, p, p))
     if rates.device != acc_pad.device:
         raise ValueError("rates and acc_pad must be on one device")
     if rates.numel() >= 2**31:
@@ -209,11 +222,13 @@ def _check_scatter(acc_pad: torch.Tensor, rates: torch.Tensor,
 
 def _window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
                         pos: torch.Tensor, defines=()) -> None:
-    """Launch K5 (from the library built with `defines`, the shipped one
-    by default) on acc_pad, in place."""
+    """Launch K5 (the build of acc_pad's dtype, with the timing `defines`
+    added, none by default) on acc_pad, in place."""
     _check_scatter(acc_pad, rates, pos)
     b, p = rates.shape[0], rates.shape[1]
-    lib, fn = _entry("window_scatter", _SIGNATURES, defines)
+    build = build_for("window_scatter", acc_pad.dtype)
+    lib, fn = _entry("window_scatter", _SIGNATURES,
+                     build.defines + tuple(defines))
     stream = torch.cuda.current_stream(acc_pad.device).cuda_stream
     rc = fn(acc_pad.data_ptr(), acc_pad.shape[0], acc_pad.shape[-1],
             pos.data_ptr(), b, p, rates.data_ptr(), stream)

@@ -375,20 +375,25 @@ def test_consume_pairs_beyond_rmax_add_nothing(monkeypatch, isothermal):
     _dead_pairs_case(monkeypatch, True, False, isothermal, rmax=5.0)
 
 
-def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal, rmax=None):
+def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal, rmax=None,
+                     dtype="float32", rate_eval="auto"):
+    """The dead-pair premise in `dtype` with `rate_eval`'s rates (the
+    mixture, or the tables: "auto" in float64; tests/test_torch_f64_table
+    runs those)."""
     from c2ray_tpu_torch.ops.tables import build_rad_tables
 
     n, b = 16, 3
     c = n // 2
     max_shell = c // 2 if capped else c
-    _, pcfg = _pair(n, "float32", use_lls=use_lls, source_batch=b,
-                    isothermal=isothermal,
+    _, pcfg = _pair(n, dtype, use_lls=use_lls, source_batch=b,
+                    isothermal=isothermal, rate_eval=rate_eval,
                     type_of_lls=1 if rmax is None else 3)
+    npt = pcfg.np_dtype
     tabs = build_rad_tables(pcfg, device="cpu")
     psc = ps.sweep_scalars(pcfg, 1e21, 1e16,
                            rmax if rmax is not None else 0.0)
     rng = np.random.default_rng(17)
-    ndhi = _field(n, np.float32, seed=3)
+    ndhi = _field(n, npt, seed=3)
     # columns climb past max_coldensh (2e19) along the fast axis
     cdo = np.cumsum(rng.uniform(1e17, 4e18, (b, n, n, n)), axis=3)
     pos_np = _corner_positions(n)[:b]
@@ -397,16 +402,15 @@ def _dead_pairs_case(monkeypatch, use_lls, capped, isothermal, rmax=None):
     ndhi[tuple(zero)] = 0.0
     cdo[(0, *((zero - pos_np[0] + c) % n))] = 1e17
     pos = torch.from_numpy(pos_np)
-    nflux = torch.from_numpy((10.0 ** rng.uniform(6, 9, b))
-                             .astype(np.float32))
-    args = (pcfg, tabs, torch.from_numpy(cdo.astype(np.float32)),
+    nflux = torch.from_numpy((10.0 ** rng.uniform(6, 9, b)).astype(npt))
+    args = (pcfg, tabs, torch.from_numpy(cdo.astype(npt)),
             torch.from_numpy(ndhi), pos, nflux, psc, max_shell)
     want = pk.consume_rates_reference(*args)
 
     o = (torch.arange(n) - c).abs()
     cheb = torch.maximum(torch.maximum(o[:, None, None], o[None, :, None]),
                          o[None, None, :])
-    of = o.to(torch.float32)
+    of = o.to(pcfg.torch_dtype)
     dist2 = (of[:, None, None] ** 2 + of[None, :, None] ** 2
              + of[None, None, :] ** 2)
     dead_pairs, by_rmax = [], []
@@ -453,28 +457,35 @@ def test_consume_stop_bound_is_conservative(dr):
     monotonic, so such a pair always has cin > max_coldensh.  Checked in
     float32 at pairs around the threshold, for every cell offset of a
     16^3 cube."""
+    _stop_bound_case(dr, "float32")
+
+
+def _stop_bound_case(dr, dtype):
+    """The stop bound's premise in `dtype` (tests/test_torch_f64_table
+    runs float64)."""
     n = 16
-    _, pcfg = _pair(n, "float32")
+    _, pcfg = _pair(n, dtype)
+    tdt, npt = pcfg.torch_dtype, pcfg.np_dtype
     c = n // 2
     rng = np.random.default_rng(23)
     o = torch.arange(n) - c
     oi, oj, ok = o[:, None, None], o[None, :, None], o[None, None, :]
     cheb = torch.maximum(torch.maximum(oi.abs(), oj.abs()), ok.abs())
-    dom = cheb.to(torch.float32)
-    dist2 = (oi * oi + oj * oj + ok * ok).to(torch.float32)
+    dom = cheb.to(tdt)
+    dist2 = (oi * oi + oj * oj + ok * ok).to(tdt)
     path = torch.sqrt((dist2 - dom * dom) / dom.clamp(min=1.0) ** 2 + 1.0)
     path = torch.where(cheb == 0, 0.5, path)
-    dr32 = torch.tensor(dr, dtype=torch.float32)
-    col_hi_per_nd = torch.tensor(np.float32(np.sqrt(3.0))) * dr32
-    top = torch.tensor(pcfg.max_coldensh, dtype=torch.float32)
+    dr_t = torch.tensor(dr, dtype=tdt)
+    col_hi_per_nd = torch.tensor(npt(np.sqrt(3.0))) * dr_t
+    top = torch.tensor(pcfg.max_coldensh, dtype=tdt)
     for _ in range(20):
         nd = torch.from_numpy(rng.uniform(0.0, 2e-4, (n, n, n))
-                              .astype(np.float32))
-        colcell = nd * (path * dr32)
+                              .astype(npt))
+        colcell = nd * (path * dr_t)
         col_hi = nd * col_hi_per_nd
         # columns within a few cells' worth of the threshold
         cd = top + torch.from_numpy(rng.uniform(-2.0, 3.0, (n, n, n))
-                                    .astype(np.float32)) * col_hi
+                                    .astype(npt)) * col_hi
         cin = torch.clamp(cd - colcell, min=0.0)
         sure = cd - col_hi > top
         assert bool(sure.any()) and not bool(sure.all())
