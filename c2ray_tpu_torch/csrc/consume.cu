@@ -163,6 +163,8 @@ struct Consume {
   real* partial;        // (2, B, nblocks)
   int K, Kx, nsrc, n, max_shell, num_tau;
   real dr, rate_scale, lcol, rmax2, max_coldensh;
+  // where not null, read at launch in place of dr, rate_scale, lcol, rmax2
+  const double *dr_p, *rate_scale_p, *lcol_p, *rmax2_p;
   // table builds: table_lookup's scalars and the thick/thin switches
   real minlogtau, inv_dlogtau, photo_limit, heat_limit;
 };
@@ -228,8 +230,9 @@ __device__ __forceinline__ void mixture(
 // entries and the residual, computed once per optical depth and shared by
 // every table read there.  Op for op the plain version on the card: torch
 // casts each Python scalar to the tensor's type, and divides by a scalar
-// as a multiply by its reciprocal (taken in that type on the host), so
-// the kernel takes inv_dlogtau = rl(1) / rl(dlogtau).
+// as a multiply by its reciprocal (1.0 / b in double on the host, then
+// cast to that type), so the kernel takes inv_dlogtau = (real)(1 /
+// dlogtau).
 struct TabPos {
   int i0, i1;
   real resid;
@@ -297,6 +300,10 @@ __device__ __forceinline__ real table_tally(
 // column p.lcol, 2 the grid p.lls.
 template <bool kTable, int kLLS, bool kHeat, bool kXray>
 __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
+  if (p.dr_p) p.dr = (real)*p.dr_p;
+  if (p.rate_scale_p) p.rate_scale = (real)*p.rate_scale_p;
+  if (p.lcol_p) p.lcol = (real)*p.lcol_p;
+  if (p.rmax2_p) p.rmax2 = (real)*p.rmax2_p;
   constexpr bool kTally = kLLS != 0;
   extern __shared__ real smem[];
   const int nsrc = p.nsrc, K = p.K, Kx = kXray ? p.Kx : 0;
@@ -516,14 +523,18 @@ int c2r_consume_nblocks(int n) {
 // those are ignored.  rmax2: the squared R_max barrier in cells (+inf when
 // LLS type 3 is off).  Every scalar comes as a double, already rounded to
 // the build's type where the plain version holds it in that type, and is
-// cast to it here, as torch casts a Python float.  Returns the first CUDA
-// error code, 0 on success.
+// cast to it here, as torch casts a Python float.  step: 4 pointers, for
+// dr, rate_scale, lcol and rmax2 in that order; one that is not null
+// points at that double on the card, which the kernel reads at launch
+// instead (the device loop's graph replays one capture over steps of
+// another dr).  Returns the first CUDA error code, 0 on success.
 int c2r_consume(const real* cdo, const real* ndhi, const real* lls,
                 const int* srcpos, const real* nflux, const real* nfx,
                 const void* const* tables, int K, int Kx, int num_tau,
                 int nsrc, int n, int max_shell, double dr, double rate_scale,
-                double lcol, int use_lls, int use_heat, int use_xray,
-                double rmax2, double max_coldensh, double minlogtau,
+                double lcol, double rmax2, const double* const* step,
+                int use_lls, int use_heat, int use_xray, double max_coldensh,
+                double minlogtau,
                 double dlogtau, double photo_limit, double heat_limit,
                 real* phih, real* phiheat, real* partial, real* loss,
                 void* stream) {
@@ -548,9 +559,13 @@ int c2r_consume(const real* cdo, const real* ndhi, const real* lls,
   p.rate_scale = (real)rate_scale;
   p.lcol = (real)lcol;
   p.rmax2 = (real)rmax2;
+  p.dr_p = step[0];
+  p.rate_scale_p = step[1];
+  p.lcol_p = step[2];
+  p.rmax2_p = step[3];
   p.max_coldensh = (real)max_coldensh;
   p.minlogtau = (real)minlogtau;
-  p.inv_dlogtau = rl(1.0) / (real)dlogtau;
+  p.inv_dlogtau = (real)(1.0 / dlogtau);
   p.photo_limit = (real)photo_limit;
   p.heat_limit = (real)heat_limit;
   if (use_lls < 0 || use_lls > 2) return (int)cudaErrorInvalidValue;

@@ -28,6 +28,10 @@ __device__ __forceinline__ float r_expm1(float x) { return expm1f(x); }
 __device__ __forceinline__ double r_expm1(double x) { return expm1(x); }
 __device__ __forceinline__ float r_log(float x) { return logf(x); }
 __device__ __forceinline__ double r_log(double x) { return log(x); }
+__device__ __forceinline__ float r_pow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double r_pow(double x, double y) {
+  return pow(x, y);
+}
 __device__ __forceinline__ float r_floor(float x) { return floorf(x); }
 __device__ __forceinline__ double r_floor(double x) { return floor(x); }
 __device__ __forceinline__ float r_abs(float x) { return fabsf(x); }

@@ -11,15 +11,21 @@ iteration's recombination rates follow the time-averaged temperature; as
 in the JAX twin (and the reference, whose temperature test compares a
 value with itself) only the ionization decides a cell's convergence.
 
-The JAX masked lax.while_loop becomes a Python loop.  Testing
-`active.any()` costs a device-to-host sync, so the isothermal loop tests
-it only every `_SYNC_EVERY` iterations: once every cell is inactive a
-pass changes nothing, so the extra passes leave the outputs bitwise
-unchanged, and the iteration count is accumulated on the device from
-`active.any()` so it stays exact too.  The non-isothermal loop tests
-after every iteration: its extra pass would integrate the temperature
-of the whole grid again, which costs far more than the sync.  The
-400-iteration cap is exact.
+global_chemistry takes the hand-written kernel (ops/chemistry_cuda.py,
+csrc/chemistry.cu: one thread per cell runs its own passes and thermal
+substeps) for CUDA tensors and the plain version,
+global_chemistry_reference, for CPU tensors; it never falls back.
+
+In the plain version the JAX masked lax.while_loop becomes a Python
+loop.  Testing `active.any()` costs a device-to-host sync, so the
+isothermal loop tests it only every `_SYNC_EVERY` iterations: once every
+cell is inactive a pass changes nothing, so the extra passes leave the
+outputs bitwise unchanged, and the iteration count is accumulated on the
+device from `active.any()` so it stays exact too.  The non-isothermal
+loop tests after every iteration: its extra pass would integrate the
+temperature of the whole grid again, which costs far more than the
+sync.  The 400-iteration cap is exact.  Its 0-d constants are device
+fills (torch.full), not copies from the host.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ class ChemistryResult(NamedTuple):
     temper_av: Optional[torch.Tensor]
     conv_flag: torch.Tensor      # number of non-converged cells (0-d int)
     n_iterations: torch.Tensor   # inner fixed-point iterations used (0-d)
+    # the kernel's int64 counters (chemistry_cuda.COUNTERS); None from
+    # the plain version
+    counters: Optional[torch.Tensor] = None
 
 
 def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
@@ -51,13 +60,42 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
                      clumping: Union[float, torch.Tensor] = 1.0,
                      cool: Optional[CoolingTable] = None,
                      cosmo_cool_coeff=0.0,
-                     photon_loss_rate: Union[float, torch.Tensor] = 0.0
-                     ) -> ChemistryResult:
+                     photon_loss_rate: Union[float, torch.Tensor] = 0.0,
+                     max_subcycles: int = 10000) -> ChemistryResult:
     """One global pass over the mesh (global_pass -> evolve0D_global).
     Argument order follows the JAX twin.  Non-isothermal runs need the
     heating grid phiheat, the step-initial temper_current, the iterate
     temper_av and the cooling table cool; cosmo_cool_coeff is the
-    adiabatic-cooling coefficient (ops/thermal.thermal)."""
+    adiabatic-cooling coefficient (ops/thermal.thermal); max_subcycles
+    caps each cell's thermal substeps in a pass.  The kernel on a CUDA
+    device, the plain version on the CPU."""
+    if ndens.device.type == "cpu":
+        return global_chemistry_reference(
+            cfg, dt, ndens, xh1_old, xh1_intermed, xh1_av, phih, phiheat,
+            temper_current, temper_av, clumping, cool, cosmo_cool_coeff,
+            photon_loss_rate, max_subcycles)
+    from .chemistry_cuda import global_chemistry_cuda
+    return global_chemistry_cuda(
+        cfg, dt, ndens, xh1_old, xh1_intermed, xh1_av, phih, phiheat,
+        temper_current, temper_av, clumping, cool, cosmo_cool_coeff,
+        photon_loss_rate, max_subcycles)
+
+
+def global_chemistry_reference(cfg: RunConfig, dt, ndens: torch.Tensor,
+                               xh1_old: torch.Tensor,
+                               xh1_intermed: torch.Tensor,
+                               xh1_av: torch.Tensor, phih: torch.Tensor,
+                               phiheat=None, temper_current=None,
+                               temper_av=None,
+                               clumping: Union[float, torch.Tensor] = 1.0,
+                               cool: Optional[CoolingTable] = None,
+                               cosmo_cool_coeff=0.0,
+                               photon_loss_rate: Union[float,
+                                                       torch.Tensor] = 0.0,
+                               max_subcycles: int = 10000
+                               ) -> ChemistryResult:
+    """Plain version of global_chemistry, on any device: the masked grid
+    loop of the JAX twin as a host-driven Python loop."""
     isothermal = cfg.isothermal
     if not isothermal and (cool is None or phiheat is None
                            or temper_current is None or temper_av is None):
@@ -68,7 +106,7 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
     eps = cfg.epsilon
     mfc = cfg.minimum_fractional_change
     min_atoms = cfg.minimum_fraction_of_atoms
-    dt = torch.tensor(dt, dtype=dtype, device=dev)
+    dt = torch.full((), dt, dtype=dtype, device=dev)
 
     # initial local states (evolve_point.F90:341-354); under compressed
     # storage the x inputs are signed min-fraction tensors and both sides
@@ -92,7 +130,8 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
         # T is the same constant in every cell and iteration, so its rate
         # coefficients are computed once (the same float ops as the JAX
         # twin's per-cell full_like(T) evaluation)
-        t_av = torch.tensor(cfg.initial_temperature, dtype=dtype, device=dev)
+        t_av = torch.full((), cfg.initial_temperature, dtype=dtype,
+                          device=dev)
         rates = recombination_rates(t_av, clumping)
         t_int = None
     else:
@@ -117,7 +156,8 @@ def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,
         if not isothermal:
             # (thermal's electron-density argument is unused, as in JAX)
             th = thermal(cfg, cool, dt, t_cur0, None, ndens, res.xh1,
-                         res.xh1_av, h1_old, phiheat, cosmo_cool_coeff)
+                         res.xh1_av, h1_old, phiheat, cosmo_cool_coeff,
+                         max_subcycles)
             t_int = torch.where(active, th.final_temperature, t_int)
             t_av = torch.where(active, th.average_temperature, t_av)
         converged = ((torch.abs((res.xh0_av - h_av0_prev) / res.xh0_av)

@@ -47,10 +47,12 @@ def grid_counts(cfg: RunConfig, ndens, xh1, temper_av=None,
     if temper_av is None:
         t = cfg.initial_temperature
         brech = clumping * const.BH00 * (t / 1e4) ** const.ALBPOW
+        # 0-d device fills, not copies from the host (the device loop
+        # captures this)
         acol = const.COLH0 * torch.sqrt(
-            torch.tensor(t, dtype=ndens.dtype, device=ndens.device)
-        ) * torch.exp(torch.tensor(-const.TEMPH0 / t, dtype=ndens.dtype,
-                                   device=ndens.device))
+            torch.full((), t, dtype=ndens.dtype, device=ndens.device)
+        ) * torch.exp(torch.full((), -const.TEMPH0 / t, dtype=ndens.dtype,
+                                 device=ndens.device))
     else:
         brech = clumping * const.BH00 * (temper_av / 1e4) ** const.ALBPOW
         acol = (const.COLH0 * torch.sqrt(temper_av)

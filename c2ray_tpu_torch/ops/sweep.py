@@ -56,7 +56,10 @@ MAX_BATCH = 256
 
 class SweepScalars(NamedTuple):
     """Per-step scalars as Python floats, rounded to the working dtype
-    (the JAX twin carries them as 0-d device arrays of that dtype)."""
+    (the JAX twin carries them as 0-d device arrays of that dtype).  The
+    device loop's captured graph holds them as one-element float64
+    tensors on the card instead, which the kernels read at launch
+    (sweep_cuda.step_scalar) and the plain ops take as operands."""
 
     dr: float            # proper cell size [cm]
     rate_scale: float    # S_star / dr^3

@@ -22,8 +22,9 @@ build_for maps a kernel, a dtype and the options to its build.
 
 Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
-kernel or raises; it never falls back.  LAUNCHES counts the kernel launches
-each wrapper makes, by build (build_for's key): "march" and
+kernel or raises; it never falls back.  LAUNCHES (launches.LaunchCounts:
+counted on the card, so a CUDA graph's replays count too) counts the
+kernel launches each wrapper makes, by build (build_for's key): "march" and
 "window_march" the marches without a grid LLS cube, + "_lls" with one;
 "consume" the deposition's isothermal mixture build without a grid LLS
 cube or X-ray, + "_table" (table rates), "_lls" (grid LLS) or "_rmax"
@@ -41,6 +42,7 @@ import torch
 
 from .. import _build
 from ..config import RunConfig
+from .launches import LaunchCounts
 from .sweep import (MAX_BATCH, SweepScalars, _rate_pass, march_columns,
                     march_windows, roll3)
 from .tables import RadTables, thin_limits, use_expsum
@@ -49,7 +51,8 @@ from .tables import RadTables, thin_limits, use_expsum
 _DTYPES = {torch.float32: ("", ()), torch.float64: ("_f64", ("C2R_F64",))}
 # the wrappers' kernels -> their csrc/ source
 _SOURCES = {"march": "march", "window_march": "march", "consume": "consume",
-            "window_gather": "window", "window_scatter": "window"}
+            "window_gather": "window", "window_scatter": "window",
+            "chemistry": "chemistry"}
 
 
 class Build(NamedTuple):
@@ -96,12 +99,12 @@ def build_for(kernel: str, dtype, cfg: Optional[RunConfig] = None,
                       heat=not cfg.isothermal)
 
 
-LAUNCHES = {
-    **{_build_key(k, d, lls=g).key: 0 for k in ("march", "window_march")
-       for d in _DTYPES for g in ("", "_lls")},
-    **{_build_key("consume", d, t, g, x, h).key: 0 for d in _DTYPES
+LAUNCHES = LaunchCounts(
+    [_build_key(k, d, lls=g).key for k in ("march", "window_march")
+     for d in _DTYPES for g in ("", "_lls")]
+    + [_build_key("consume", d, t, g, x, h).key for d in _DTYPES
        for t in (False, True) for g in ("", "_lls", "_rmax")
-       for x in (False, True) for h in (False, True)}}
+       for x in (False, True) for h in (False, True)])
 
 # the most sources one launch takes (CUDA's grid z extent)
 MAX_WINDOWS = 65535
@@ -111,8 +114,8 @@ _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # has the same C signature (scalars as doubles, arrays as pointers)
 _SIGNATURES = {
     "march": ("march", "c2r_march",
-              [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _d, _d, _i, _vp, _vp,
-               _vp, _vp, _vp]),
+              [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _d, _d, _vp, _vp, _i,
+               _vp, _vp, _vp, _vp, _vp]),
     "window_march": ("march", "c2r_march_windows",
                      [_vp, _vp, _i, _i, _i, _d, _d, _i, _vp, _vp, _vp,
                       _vp]),
@@ -122,8 +125,8 @@ _SIGNATURES = {
     "consume": ("consume", "c2r_consume",
                 [_vp, _vp, _vp, _vp, _vp, _vp,
                  ctypes.POINTER(ctypes.c_void_p), _i, _i, _i, _i, _i, _i,
-                 _d, _d, _d, _i, _i, _i, _d, _d, _d, _d, _d, _d, _vp, _vp,
-                 _vp, _vp, _vp]),
+                 _d, _d, _d, _d, ctypes.POINTER(ctypes.c_void_p), _i, _i, _i,
+                 _d, _d, _d, _d, _d, _vp, _vp, _vp, _vp, _vp]),
     # blocks of the consume kernel's cell launch at mesh n: the size of
     # its loss partials, from the kernel's own launch shape
     "consume_nblocks": ("consume", "c2r_consume_nblocks", [_i]),
@@ -144,6 +147,20 @@ def _check_rc(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.c2r_error_string(rc).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def step_scalar(name: str, x, dev: torch.device):
+    """A per-step scalar for a kernel -> (value, pointer): a Python number
+    goes by value (pointer None); a one-element float64 tensor on `dev`
+    goes by its address, and the kernel reads it at launch, so a captured
+    CUDA graph reads the value it holds at each replay (value 0.0)."""
+    if not isinstance(x, torch.Tensor):
+        return float(x), None
+    if x.device != dev or x.dtype != torch.float64 or x.numel() != 1:
+        raise ValueError(f"{name}: a per-step scalar tensor must hold one "
+                         f"float64 on {dev}, got {x.dtype} {tuple(x.shape)} "
+                         f"on {x.device}")
+    return 0.0, x.data_ptr()
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
@@ -210,8 +227,8 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
                                               max_shell, lls)
     out, launches = _grid_march(cfg, ndhi, srcpos_b, sc, max_shell,
                                 lls=lls)
-    LAUNCHES[build_for("march", ndhi.dtype, cfg, lls is not None).key] += \
-        launches
+    LAUNCHES.add(build_for("march", ndhi.dtype, cfg, lls is not None).key,
+                 launches, ndhi.device)
     return out
 
 
@@ -250,10 +267,12 @@ def _grid_march(cfg: RunConfig, ndhi: torch.Tensor, srcpos_b: torch.Tensor,
     lls_zt = lls.permute(2, 0, 1).contiguous() if mode == 2 else None
     stream = torch.cuda.current_stream(ndhi.device).cuda_stream
     launches = ctypes.c_int(0)
+    dr, dr_p = step_scalar("sc.dr", sc.dr, ndhi.device)
+    lcol, lcol_p = step_scalar("sc.lls_coldens", sc.lls_coldens, ndhi.device)
     rc = fn(ndhi.data_ptr(), ndhi_zt.data_ptr(),
             lls.data_ptr() if mode == 2 else None,
             lls_zt.data_ptr() if mode == 2 else None, srcpos_b.data_ptr(),
-            b, n, nshell, sc.dr, sc.lls_coldens, mode, planes.data_ptr(),
+            b, n, nshell, dr, lcol, dr_p, lcol_p, mode, planes.data_ptr(),
             zst.data_ptr(), out.data_ptr(), ctypes.byref(launches), stream)
     _check_rc(lib, rc, "march")
     return out, launches.value
@@ -299,8 +318,8 @@ def compute_columns_windows(cfg: RunConfig, wins: torch.Tensor,
                                                  lls_wins)
     out, launches = _window_march(cfg, wins, sc, max_shell,
                                   lls_wins=lls_wins)
-    LAUNCHES[build_for("window_march", wins.dtype, cfg,
-                       lls_wins is not None).key] += launches
+    LAUNCHES.add(build_for("window_march", wins.dtype, cfg,
+                           lls_wins is not None).key, launches, wins.device)
     return out
 
 
@@ -441,8 +460,14 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
                if heat else None)
     partial = torch.empty((2, b, nblocks), dtype=dtype, device=dev)
     loss = torch.empty((2, b), dtype=dtype, device=dev)
-    # the R_max barrier: +inf lets every ray through (no type 3)
-    rmax2 = sc.rmax2_cells if _rmax_on(cfg) else float("inf")
+    # the per-step scalars (values, pointers); the R_max barrier: +inf
+    # lets every ray through (no type 3)
+    step = [step_scalar(f"sc.{f}", getattr(sc, f), dev)
+            for f in ("dr", "rate_scale", "lls_coldens", "rmax2_cells")]
+    if not _rmax_on(cfg):
+        step[3] = (float("inf"), None)
+    values = [v for v, _ in step]
+    pointers = (ctypes.c_void_p * 4)(*[p for _, p in step])
     photo_limit, heat_limit = thin_limits(cfg, dtype)
     dlogtau = (cfg.maxlogtau - cfg.minlogtau) / cfg.num_tau
 
@@ -454,11 +479,11 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(cdo_b.data_ptr(), ndhi.data_ptr(), ptr(lls_grid, mode == 2),
             srcpos_b.data_ptr(), nflux_b.data_ptr(), ptr(nfx_b, xray),
-            table_ptrs, k, kx, cfg.num_tau, b, n, max_shell, sc.dr,
-            sc.rate_scale, sc.lls_coldens, mode, int(heat), int(xray),
-            rmax2, cfg.max_coldensh, cfg.minlogtau, dlogtau, photo_limit,
-            heat_limit, phih.data_ptr(), ptr(phiheat, heat),
-            partial.data_ptr(), loss.data_ptr(), stream)
+            table_ptrs, k, kx, cfg.num_tau, b, n, max_shell, *values,
+            pointers, mode, int(heat), int(xray), cfg.max_coldensh,
+            cfg.minlogtau, dlogtau, photo_limit, heat_limit,
+            phih.data_ptr(), ptr(phiheat, heat), partial.data_ptr(),
+            loss.data_ptr(), stream)
     _check_rc(lib, rc, "consume")
-    LAUNCHES[build.key] += 2
+    LAUNCHES.add(build.key, 2, dev)
     return phih, phiheat, loss[0], loss[1]

@@ -235,7 +235,9 @@ def thermal(cfg: RunConfig, cool: CoolingTable, dt, initial_temperature,
     """
     TRIPS["calls"] += 1
     dtype, dev = initial_temperature.dtype, initial_temperature.device
-    dt = torch.as_tensor(dt, dtype=dtype, device=dev)
+    dt = (torch.as_tensor(dt, dtype=dtype, device=dev)
+          if isinstance(dt, torch.Tensor)
+          else torch.full((), dt, dtype=dtype, device=dev))
     e0 = temper2pressr(initial_temperature, ndens_atom,
                        electrondens(ndens_atom, xh1_old)) / const.GAMMA1
     cosmo_rate = cosmo_cool_coeff * e0

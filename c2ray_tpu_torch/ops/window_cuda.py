@@ -23,7 +23,8 @@ Each wrapper takes its plain PyTorch version (the *_reference function
 beside it) only for tensors on the CPU.  For a CUDA tensor it launches the
 kernel or raises; it never falls back.  Each kernel has a float32 and a
 float64 build (sweep_cuda.build_for), taken by the tensors' dtype.
-LAUNCHES counts the kernel launches each wrapper makes, by build:
+LAUNCHES (launches.LaunchCounts) counts the kernel launches each wrapper
+makes, by build:
 "window_gather", "window_scatter", and "window_gather_f64",
 "window_scatter_f64".
 """
@@ -35,11 +36,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from .launches import LaunchCounts
 from .sweep_cuda import _DTYPES, _check_cuda, _check_rc, _entry, build_for
 
-LAUNCHES = {build_for(k, d).key: 0 for k in ("window_gather",
-                                              "window_scatter")
-            for d in _DTYPES}
+LAUNCHES = LaunchCounts([build_for(k, d).key for k in ("window_gather",
+                                                       "window_scatter")
+                         for d in _DTYPES])
 # (device index, dtype) -> K5's windows per launch
 _SCATTER_LIMIT: dict = {}
 
@@ -114,7 +116,8 @@ def window_gather(field_pad: torch.Tensor, pos: torch.Tensor,
     if field_pad.device.type == "cpu":
         return window_gather_reference(field_pad, pos, radius)
     out = _window_gather(field_pad, pos, radius)
-    LAUNCHES[build_for("window_gather", field_pad.dtype).key] += 1
+    LAUNCHES.add(build_for("window_gather", field_pad.dtype).key, 1,
+                 field_pad.device)
     return out
 
 
@@ -176,8 +179,9 @@ def window_scatter_add(acc_pad: torch.Tensor, rates: torch.Tensor,
     if limit < 1:
         raise RuntimeError(f"window scatter-add: the kernel takes {limit} "
                            "windows per launch on this device")
-    LAUNCHES[build_for("window_scatter", acc_pad.dtype).key] += \
-        scatter_in_chunks(acc_pad, rates, pos, limit, _window_scatter_add)
+    LAUNCHES.add(build_for("window_scatter", acc_pad.dtype).key,
+                 scatter_in_chunks(acc_pad, rates, pos, limit,
+                                   _window_scatter_add), acc_pad.device)
     return acc_pad
 
 

@@ -5,11 +5,26 @@ regime.
 
 One call evolves the grid over a timestep dt by iterating
 [sweep all sources -> global chemistry -> photon audit] until the grid
-converges.  The host drives the loop: each iteration dispatches the sweep
-and the chemistry tail, then makes ONE device-to-host copy of the packed
-scalars [conv_flag, sum_xh1, photon_loss, lls_loss, (h0, h1, rec, coll)]
-and the per-source losses.  The JAX package's device-resident
-lax.while_loop has no counterpart yet.  Non-isothermally the sweep also
+converges.  Two loops do it, as in the JAX package:
+
+  the device loop (_evolve_device_loop, the JAX twin's lax.while_loop
+      program): the iteration's body updates a carry of tensors and
+      writes the loop's condition on the device, the per-iteration
+      scalars going to a history buffer; on a CUDA device (no parallel
+      layout) the body is captured once into a CUDA graph and one launch
+      of a conditional WHILE node around it (cuda_graph.WhileGraph) runs
+      the whole loop, then ONE device-to-host copy brings back the
+      scalars, the history and the per-source losses, and the host
+      replays the per-iteration reports, Timings stamps and dump.  On the
+      CPU, and under a parallel layout, the same body runs uncaptured,
+      with one host read of the condition per iteration.  It is taken
+      when device_loop_ok says so (the JAX rule);
+  the host loop: each iteration dispatches the sweep and the chemistry
+      tail, then makes ONE device-to-host copy of the packed scalars
+      [conv_flag, sum_xh1, photon_loss, lls_loss, (h0, h1, rec, coll)]
+      and the per-source losses.
+
+Non-isothermally the sweep also
 deposits the photo-heating rate, the chemistry integrates the
 temperature (ops/thermal.py) and the step commits the last iterate's
 temperature (set_final_temperature_point).  LLS runs off or as types 1
@@ -38,6 +53,8 @@ over the ranks.
 
 from __future__ import annotations
 
+import time
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,9 +63,9 @@ import torch
 from .config import RunConfig, resolve_device
 from .ops.chemistry import global_chemistry
 from .ops.photonstats import GridCounts, PhotonStatistics, grid_counts
-from .ops.sweep import (check_window_positions, neutral_density,
-                        raytrace_all_sources, sweep_scalars, windowed_batch,
-                        windowed_prepass, wrap_pad)
+from .ops.sweep import (SweepScalars, check_window_positions,
+                        neutral_density, raytrace_all_sources, sweep_scalars,
+                        windowed_batch, windowed_prepass, wrap_pad)
 from .ops.tables import RadTables, photoion_rates
 from .ops.thermal import CoolingTable
 from .state import GridState, xh1_of
@@ -135,6 +152,12 @@ class Evolve3D:
             global_chemistry
         self._windowed = windowed
         self._rate_sharding = rate_sharding
+        # the device loop's CUDA graphs, one per static signature
+        self._loop_cache = {}
+        # how the last device-loop step ran (form, iterations, graph
+        # launches, host reads, capture seconds, graph nodes); None until
+        # one has
+        self.last_loop = None
 
     def _gsum(self, t: torch.Tensor) -> torch.Tensor:
         """Per-rank sums over the state's grid -> sums over the whole grid
@@ -402,6 +425,346 @@ class Evolve3D:
         return (chem.xh1_intermed, chem.xh1_av, chem.temper_intermed,
                 chem.temper_av, packed)
 
+    # ------------------------------------------------------------------
+    # the device-resident convergence loop (the JAX twin's _loop_program,
+    # _rt_call and _evolve_device_loop)
+
+    def device_loop_ok(self, use_adaptive: bool, verbose: bool = False,
+                       dumper=None, clocks=None) -> bool:
+        """Whether evolve3d takes the device loop (the JAX twin's rule,
+        c2ray_tpu/solver.py:812-848): cfg.on_device_loop, not adaptive
+        (those sweeps re-bucket on the host), not verbose (per-iteration
+        prints), no dump due within the next minute (the host loop dumps
+        per iteration; decided on the I/O rank and broadcast when there
+        are several processes), no Clocks under cfg.timings_fidelity
+        (the device loop's stamps are replayed at its end), mesh <= 512.
+        The JAX rule's noniso_ok (a TPU worker-fault workaround) is not
+        carried over."""
+        cfg = self.cfg
+        dump_ok = (dumper is None or not getattr(dumper, "enabled", False)
+                   or (time.time() - dumper._last_wall)
+                   < dumper.interval_s - 60.0)
+        if dumper is not None:
+            from .parallel import multihost as mh
+            if mh.process_count() > 1:
+                dump_ok = mh.broadcast_obj(dump_ok if mh.is_io_rank()
+                                           else None)
+        fidelity_ok = clocks is None or not cfg.timings_fidelity
+        return bool(cfg.on_device_loop and not use_adaptive and not verbose
+                    and dump_ok and fidelity_ok and cfg.mesh[0] <= 512)
+
+    def _graph_loop(self) -> bool:
+        """The device loop's form: a CUDA graph on a CUDA device without
+        a parallel layout (gloo's collectives cannot be captured), else
+        the same body uncaptured."""
+        return (self.device.type == "cuda" and not self._custom_raytracer
+                and self._chem is global_chemistry
+                and self._rate_sharding is None)
+
+    def _rt_call(self, a, c):
+        """The sweep inside the loop body (the JAX _rt_call)."""
+        return self._rt(self.cfg, self.tables, a.ndens, c.xh_av, a.srcpos,
+                        a.nflux, a.sc, lls_grid=a.lls, nflux_xray=a.nfx)
+
+    def _loop_cond(self, c, crit: int) -> torch.Tensor:
+        """The loop's condition on the carry's 0-d tensors, in their dtype
+        (the JAX twin's cond, c2ray_tpu/solver.py:508-517): not converged
+        and niter <= max_global_iterations."""
+        cfg = self.cfg
+        cf = cfg.convergence_fraction
+        sum1 = c.sum1
+        sum0 = float(cfg.n_cells) - sum1
+        one = torch.ones_like(sum1)
+        rel1 = torch.where(sum1 > 0, torch.abs(sum1 - c.prev1) / sum1, one)
+        rel0 = torch.where(sum0 > 0, torch.abs(sum0 - c.prev0) / sum0, one)
+        conv = (c.conv < crit) | ((rel1 < cf) & (rel0 < cf))
+        return ~conv & (c.niter <= cfg.max_global_iterations)
+
+    def _loop_body(self, a, c) -> None:
+        """One convergence iteration on the carry c (the JAX twin's body,
+        c2ray_tpu/solver.py:519-546): sweep, tail, the history row, the
+        previous iterates (for the dump), then the condition into c.go.
+        No host read.  A static carry (the captured form) is updated in
+        place, an eager one by rebinding."""
+        have_t = not self.cfg.isothermal
+
+        def put(name, value):
+            if c.static:
+                getattr(c, name).copy_(value)
+            else:
+                setattr(c, name, value)
+
+        put("prev1", c.sum1)
+        put("prev0", float(self.cfg.n_cells) - c.sum1)
+        phih, phiheat, ploss, llsl, psrc = self._rt_call(a, c)
+        xh_int, xh_av, t_int, t_av, packed = self._tail(
+            a.dt, a.ndens, a.xh1, c.xh_int, c.xh_av, phih, a.clump, ploss,
+            llsl, psrc, a.with_stats, phiheat, a.t_cur,
+            c.t_av if have_t else None, a.coeff, a.sc)
+        put("xh_int_p", c.xh_int)
+        put("xh_av_p", c.xh_av)
+        put("xh_int", xh_int)
+        put("xh_av", xh_av)
+        if have_t:
+            put("t_int_p", c.t_int)
+            put("t_av_p", c.t_av)
+            put("t_int", t_int)
+            put("t_av", t_av)
+            put("phiheat", phiheat)
+        put("phih", phih)
+        put("psrc", packed[a.k:])
+        c.hist.index_copy_(0, c.it.view(1).long(),
+                           packed[:a.k].view(1, a.k))
+        put("sum1", packed[1])
+        put("conv", packed[0])
+        put("niter", c.niter + 1)
+        put("it", c.it + 1)
+        put("go", self._loop_cond(c, a.crit))
+
+    def _loop_start(self, c, xh_int, xh_av, t_int, t_av, sum1, conv_flag0,
+                    niter0) -> None:
+        """Set the carry to the loop's start (the JAX carry0): the
+        iterates, the convergence scalars, an empty history; then the
+        condition into c.go."""
+        cfg = self.cfg
+        dl = c.hist.dtype
+        big = 2.0 * float(cfg.n_cells)
+        start = dict(xh_int=xh_int, xh_av=xh_av, xh_int_p=xh_int,
+                     xh_av_p=xh_av, prev1=big, prev0=big, sum1=sum1,
+                     conv=float(conv_flag0), niter=int(niter0), it=0)
+        if not cfg.isothermal:
+            start.update(t_int=t_int, t_av=t_av, t_int_p=t_int, t_av_p=t_av)
+        for name, v in start.items():
+            if c.static:
+                getattr(c, name).copy_(v) if isinstance(v, torch.Tensor) \
+                    else getattr(c, name).fill_(v)
+            elif isinstance(v, torch.Tensor):
+                setattr(c, name, v)
+            else:
+                setattr(c, name, torch.full(
+                    (), v, device=self.device,
+                    dtype=torch.int32 if name in ("niter", "it") else dl))
+        c.hist.zero_()
+        if c.static:
+            c.go.copy_(self._loop_cond(c, c.crit))
+        else:
+            c.go = self._loop_cond(c, c.crit)
+
+    def _loop_carry(self, a, static: bool, template) -> SimpleNamespace:
+        """A carry: history, the per-source losses' and rate grids'
+        buffers, and (static) every other entry allocated once, for a
+        captured body to update in place."""
+        cfg = self.cfg
+        dl = cfg.torch_dtype
+        dev = self.device
+        max_rows = cfg.max_global_iterations + 2
+        c = SimpleNamespace(
+            static=static, crit=a.crit,
+            hist=torch.zeros((max_rows, a.k), dtype=dl, device=dev),
+            psrc=torch.zeros(a.srcpos.shape[0], dtype=dl, device=dev))
+        n = cfg.mesh[0]
+        c.phih = torch.zeros((n, n, n), dtype=dl, device=dev)
+        c.phiheat = torch.zeros((n, n, n) if not cfg.isothermal else (),
+                                dtype=dl, device=dev)
+        if static:
+            cubes = ["xh_int", "xh_av", "xh_int_p", "xh_av_p"]
+            if not cfg.isothermal:
+                cubes += ["t_int", "t_av", "t_int_p", "t_av_p"]
+            for name in cubes:
+                setattr(c, name, torch.empty_like(template))
+            for name in ("prev1", "prev0", "sum1", "conv"):
+                setattr(c, name, torch.zeros((), dtype=dl, device=dev))
+            c.niter = torch.zeros((), dtype=torch.int32, device=dev)
+            c.it = torch.zeros((), dtype=torch.int32, device=dev)
+            c.go = torch.zeros((), dtype=torch.bool, device=dev)
+        return c
+
+    def _run_graph_loop(self, a, xh_int, xh_av, t_int, t_av, sum1,
+                        conv_flag0, niter0):
+        """The device loop as one launch of a CUDA graph: the body
+        captured once per static signature (the JAX twin's key
+        (with_stats, have_lls, have_x, have_t)) and what the capture bakes
+        in (the source count, dtype and a scalar clumping); a new baked
+        value captures anew.  The per-step scalars (dt, the sweep scalars,
+        cosmo_cool_coeff) and the inputs go into the graph's static
+        buffers before each launch, where the kernels and ops read them.
+        A capture's first iteration runs uncaptured, which warms the
+        kernels.  -> (carry, info)"""
+        from .cuda_graph import WhileGraph
+
+        cfg = self.cfg
+        have_t = not cfg.isothermal
+        clump_grid = isinstance(a.clump, torch.Tensor)
+        key = (a.with_stats, a.lls is not None, a.nfx is not None, have_t)
+        baked = (int(a.srcpos.shape[0]), cfg.torch_dtype,
+                 tuple(a.clump.shape) if clump_grid else float(a.clump))
+        entry = self._loop_cache.get(key)
+        if entry is not None and entry.baked != baked:
+            if entry.graph is not None:
+                entry.graph.close()
+            entry = None
+        inputs = ("ndens", "xh1", "t_cur", "srcpos", "nflux", "nfx", "lls")
+        inputs += ("clump",) if clump_grid else ()
+        if entry is None:
+            self._loop_cache.pop(key, None)
+            st = SimpleNamespace(**vars(a))
+            for name in inputs:
+                v = getattr(a, name)
+                setattr(st, name, v.clone() if v is not None else None)
+            # dt, the sweep scalars and cosmo_cool_coeff as float64 on the
+            # device: the kernels read them at each replay
+            step = torch.zeros(6, dtype=torch.float64, device=self.device)
+            st.sc = SweepScalars(*step[:4])
+            st.dt, st.coeff = step[4], step[5]
+            entry = SimpleNamespace(baked=baked, a=st, step=step,
+                                    c=self._loop_carry(st, True, a.xh1),
+                                    graph=None)
+            self._loop_cache[key] = entry
+        else:
+            for name in inputs:
+                if getattr(a, name) is not None:
+                    getattr(entry.a, name).copy_(getattr(a, name))
+        entry.step.copy_(torch.tensor(list(a.sc) + [a.dt, a.coeff],
+                                      dtype=torch.float64))
+        st, c = entry.a, entry.c
+        self._loop_start(c, xh_int, xh_av, t_int, t_av, sum1, conv_flag0,
+                         niter0)
+        info = dict(form="graph", host_reads=0, graph_launches=0,
+                    capture_s=0.0, nodes=None, warmup=0)
+        if entry.graph is None:
+            info["host_reads"] += 1
+            if not bool(c.go):
+                return c, info
+            self._loop_body(st, c)
+            info["warmup"] = 1
+            entry.graph = WhileGraph(lambda: self._loop_body(st, c), c.go)
+            info["capture_s"] = entry.graph.capture_s
+        info["nodes"] = entry.graph.nodes
+        entry.graph.run()
+        info["graph_launches"] = 1
+        return c, info
+
+    def _evolve_device_loop(self, ndens, srcpos_t, nflux_t, nfx_t, lls_t,
+                            sc, clump, coeff, dt, vol, xh1, xh_int, xh_av,
+                            t_cur, t_av, t_int, niter0, conv_flag0, sum1_0,
+                            conv_criterion, num_src, total_flux, stats,
+                            with_stats, last_stat4, dumper, clocks,
+                            photon_loss0, lls_loss0, phih0, phiheat0):
+        """The whole timestep's convergence loop on the device, then the
+        host's replay of the per-iteration photon reports, Timings stamps
+        and the dump (the JAX twin's _evolve_device_loop,
+        c2ray_tpu/solver.py:567-667)."""
+        cfg = self.cfg
+        n_cells = cfg.n_cells
+        have_t = not cfg.isothermal
+        dl = cfg.torch_dtype
+        k = 8 if with_stats else 4
+        if sum1_0 is None:
+            sum1_dev = self._gsum(torch.sum(self._dense_x1(xh_int)))
+        else:
+            sum1_dev = torch.full((), sum1_0, dtype=dl, device=self.device)
+        a = SimpleNamespace(ndens=ndens, xh1=xh1, t_cur=t_cur, srcpos=srcpos_t,
+                            nflux=nflux_t, nfx=nfx_t, lls=lls_t, clump=clump,
+                            sc=sc, dt=dt, coeff=coeff, with_stats=with_stats,
+                            k=k, crit=int(conv_criterion))
+        if self._graph_loop():
+            c, info = self._run_graph_loop(a, xh_int, xh_av, t_int, t_av,
+                                           sum1_dev, conv_flag0, niter0)
+        else:
+            c = self._loop_carry(a, False, xh1)
+            self._loop_start(c, xh_int, xh_av, t_int, t_av, sum1_dev,
+                             conv_flag0, niter0)
+            reads = 0
+            while True:
+                reads += 1
+                if not bool(c.go):        # one host read per iteration
+                    break
+                self._loop_body(a, c)
+            info = dict(form="eager", host_reads=reads, graph_launches=0,
+                        capture_s=0.0, nodes=None, warmup=0)
+        # the one device-to-host copy of the loop's results
+        scal = torch.stack([c.sum1, c.conv, c.niter.to(dl), c.it.to(dl),
+                            c.prev1, c.prev0])
+        got = torch.cat([scal, c.hist.reshape(-1), c.psrc.to(dl)]
+                        ).cpu().numpy()
+        info["host_reads"] += 1
+        sum1 = float(got[0])
+        conv_flag = int(got[1])
+        niter = int(got[2])
+        it_count = int(got[3])
+        prev1, prev0 = float(got[4]), float(got[5])
+        max_rows = cfg.max_global_iterations + 2
+        hist = got[6:6 + max_rows * k].reshape(max_rows, k)
+        psrc = got[6 + max_rows * k:].astype(np.float64)
+        info["iterations"] = it_count
+        self.last_loop = info
+
+        # the host's replay: per-iteration photon reports and Timings
+        # stamps, the streams the host loop writes
+        last_report = {}
+        photon_loss, lls_loss = photon_loss0, lls_loss0
+        stat4 = last_stat4
+
+        def apply_stat4(s4):
+            stats.calculate(GridCounts(s4[0], s4[1], 0.0, 0.0),
+                            GridCounts(0.0, 0.0, s4[2], s4[3]), vol, dt)
+
+        for row in hist[:it_count]:
+            photon_loss, lls_loss = float(row[2]), float(row[3])
+            if with_stats:
+                stat4 = tuple(float(v) for v in row[4:8])
+                apply_stat4(stat4)
+                last_report = stats.report(dt, photon_loss, lls_loss,
+                                           total_flux)
+        if clocks is not None:
+            for i in range(niter - it_count + 1, niter + 1):
+                clocks.stamp(f"Time after iteration {i}")
+        # the dump carries the last iteration's pre-chemistry iterates and
+        # rate grids, as in the host loop
+        if dumper is not None and it_count > 0:
+            dumper.maybe_dump(niter, photon_loss, c.phih, c.xh_av_p,
+                              c.xh_int_p, c.phiheat if have_t else None,
+                              c.t_int_p if have_t else None,
+                              c.t_av_p if have_t else None)
+        # the final convergence classification (the cond, on the host)
+        sum0 = float(n_cells) - sum1
+        rel1 = abs(sum1 - prev1) / sum1 if sum1 > 0 else 1.0
+        rel0 = abs(sum0 - prev0) / sum0 if sum0 > 0 else 1.0
+        converged = conv_flag < conv_criterion or (
+            rel1 < cfg.convergence_fraction
+            and rel0 < cfg.convergence_fraction)
+
+        # a captured carry is reused by the next step: the results are
+        # copies of it
+        own = (lambda t: t.clone()) if c.static else (lambda t: t)
+        xh_int_f = own(c.xh_int)
+        xh_av_f = own(c.xh_av)
+        t_int_f = own(c.t_int) if have_t else None
+        t_av_f = own(c.t_av) if have_t else t_av
+        if it_count > 0:
+            phih_f = own(c.phih)
+            phiheat_f = own(c.phiheat) if have_t else None
+        else:
+            phih_f, phiheat_f = phih0, phiheat0
+        if stats is not None:
+            if stat4 is None:
+                stats.calculate(self._counts(ndens, xh_int_f, t_av_f, clump),
+                                self._counts(ndens, xh_av_f, t_av_f, clump),
+                                vol, dt)
+            else:
+                apply_stat4(stat4)
+            last_report = stats.report(dt, photon_loss, lls_loss, total_flux)
+            stats.update_grandtotal(dt, total_flux)
+        new_state = GridState(xh1=xh_int_f, temper_current=t_int_f,
+                              temper_av=t_av_f if have_t else None,
+                              temper_intermed=t_int_f)
+        return new_state, EvolveInfo(
+            niter=niter, conv_flag=conv_flag, converged=converged,
+            mean_xh1=sum1 / n_cells, photon_loss=photon_loss,
+            lls_loss=lls_loss, per_source_loss=psrc[:num_src],
+            photon_stats=last_report, phih=phih_f,
+            phiheat=phiheat_f if have_t else None)
+
     def evolve3d(self, state: GridState, ndens_proper: torch.Tensor,
                  dr_proper: float, srcpos, nflux, dt: float,
                  clumping=1.0, lls_coldens: float = 0.0,
@@ -538,6 +901,16 @@ class Evolve3D:
                 apply_stat4(last_stat4)
                 last_report = stats.report(dt, photon_loss, lls_loss,
                                            total_flux)
+
+        # the device-resident loop where the JAX rule takes it; the
+        # pending pass of a resumed step has run first
+        if self.device_loop_ok(use_adaptive, verbose, dumper, clocks):
+            return self._evolve_device_loop(
+                ndens, srcpos_t, nflux_t, nfx_t, lls_t, sc, clump, coeff, dt,
+                vol, xh1, xh_int, xh_av, t_cur, t_av, t_int, niter,
+                conv_flag, sum1, conv_criterion, num_src, total_flux, stats,
+                with_stats, last_stat4, dumper, clocks, photon_loss,
+                lls_loss, phih, phiheat)
 
         while True:
             # convergence tests (evolve.F90:179-233)
