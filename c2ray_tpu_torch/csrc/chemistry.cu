@@ -49,15 +49,30 @@
 // stragglers share warps with cells that finish early, and a warp runs
 // as long as its slowest cell: that divergence is this design's cost.
 //
-// Design: one thread per cell, 256 a block; no shared memory.  The
-// per-cell state lives in registers; the inputs are read once, before
-// the loops (xh1_intermed only where no pass runs: every pass
-// overwrites it).  The five counters are reduced in the block (warp
-// shuffles, then shared memory) into per-block partials, which a second
-// one-block launch reduces: integers, so exact, and no atomics on five
-// shared addresses (the first form, one atomic per warp and counter,
-// serialized there: -DC2R_CHEM_ATOMIC_COUNTERS keeps it as a timing
-// build).
+// Design: one thread per cell, 256 a block; shared memory only for the
+// block's reductions.  The per-cell state lives in registers; the inputs
+// are read once, before the loops (xh1_intermed only where no pass
+// runs: every pass overwrites it).  The five counters are reduced in the
+// block (warp shuffles, then shared memory) into per-block partials,
+// which a second one-block launch reduces: integers, so exact, and no
+// atomics on five shared addresses (the first form, one atomic per warp
+// and counter, serialized there: -DC2R_CHEM_ATOMIC_COUNTERS keeps it as
+// a timing build).
+//
+// The photon audit (where the caller asks for it): what the solver's tail
+// computes with two calls of ops/photonstats.py::grid_counts (the JAX
+// twin's c2ray_tpu/ops/photonstats.py::grid_counts, called twice in
+// c2ray_tpu/solver.py's _tail; XLA fuses it there), folded into the
+// output pass, which holds every input of those sums in registers: h0 and
+// h1 of the stored iterate, rec_rate and coll_rate of the stored average
+// under the output temperature (heat) or the initial temperature, with a
+// scalar or per-cell clumping, decoded from compressed storage as
+// grid_counts decodes it.  Each cell's four terms follow grid_counts' ops;
+// they are summed in double, per block (warp shuffles, then the warps in
+// order) and then by the reduce launch in a fixed order, so the sums are
+// the same from run to run and differ from torch.sum's only by the order
+// of the sum.  The audit reads no extra bytes (a clumping grid, where
+// given, is read once in either build).
 
 #include <cuda_runtime.h>
 
@@ -68,14 +83,26 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kReduceThreads = 1024;
+// the reduce's first stage: the per-block partials of each quantity in
+// this many contiguous chunks, one block each
+constexpr int kChunks = 128;
 constexpr int kTempPoints = 61;     // the cooling table (cooling.f90:26)
 
-// the C entry's scalars, in ops/chemistry_cuda.py's order
+// the C entry's scalars, in ops/chemistry_cuda.py's order; the last four
+// are the audit's isothermal rates as photonstats.grid_counts takes them,
+// Python floats there (chemistry_cuda.audit_scalars): the recombination
+// rate of a scalar clumping, (T / 1e4)^ALBPOW for a clumping tensor, T and
+// -TEMPH0 / T
 enum Scalar {
   kDt, kEps, kMfc, kMinAtoms, kLossScalar, kClumpBh, kBh00, kAlbpow,
   kColh0, kTemph0, kAbuC, kKb, kGamma1, kLog10e, kTabMin, kTabStep,
-  kMinitemp, kRelDenergy, kCoeff, kNumScalars
+  kMinitemp, kRelDenergy, kCoeff, kAuditBrech, kAuditPow, kAuditTemp,
+  kAuditNegT, kNumScalars
 };
+
+// the audit's sums (photonstats.GridCounts): h0 and h1 of the iterate
+// xh1_intermed, rec_rate and coll_rate of the average xh1_av
+enum Audit { kH0, kH1, kRec, kColl, kNumAudit };
 
 // counters: conv_flag, most passes of a cell, passes, substeps, most
 // substeps of a cell in one pass
@@ -95,7 +122,7 @@ struct Chem {
   const real* loss;     // photon_loss_rate, or null: loss_scalar
   const real* brech;    // isothermal rates (brech: stride 0 or 1)
   const real* acol;
-  const real* clump;    // heat build's clumping grid, or null: clump_bh
+  const real* clump;    // clumping (stride 0 or 1), or null: clump_bh
   const real* phiheat;
   const real* t_cur;
   const real* t_av;
@@ -106,13 +133,15 @@ struct Chem {
   real* out_tav;
   unsigned long long* counters;
   unsigned long long* partial;   // kNumCounters x blocks
+  double* apartial;     // kNumAudit x blocks, or null: no audit
+  real* audit;          // kNumAudit sums out
   long long ncell;
   int loss_stride, brech_stride, clump_stride;
   int max_iter, max_sub;
   real dt, eps, one_minus_eps, mfc, min_atoms, loss_scalar, clump_bh;
   real bh00, albpow, inv_1e4, colh0, neg_temph0, abu_c, k_b, gamma1,
       inv_gamma1, log10e, tab_min, inv_tab_step, minitemp, rel_denergy,
-      coeff, rate_floor;
+      coeff, rate_floor, audit_brech, audit_pow, audit_temp, audit_neg_t;
   // where not null, read at launch in place of dt and coeff
   const double *dt_p, *coeff_p;
 };
@@ -138,6 +167,36 @@ __device__ __forceinline__ real xh0_of(real xc) {
 }
 __device__ __forceinline__ real compress(real x1, real x0) {
   return x1 <= rl(0.5) ? x1 : (x0 > rl(0.0) ? -x0 : rl(1.0));
+}
+
+// recombination_rates at the temperature t (doric.f90:74-79), the heat
+// build's form: clump_bh * ((t / 1e4) ^ ALBPOW) and COLH0 sqrt(t) exp(-TEMPH0
+// / t), as torch on the card evaluates them
+__device__ __forceinline__ void rates_at(const Chem& p, real t, real clump_bh,
+                                         real& brech, real& acol) {
+  brech = clump_bh * r_pow(t * p.inv_1e4, p.albpow);
+  acol = (p.colh0 * r_sqrt(t)) * r_exp((rl(1.0) / t) * p.neg_temph0);
+}
+
+// The warp's sums of the four audit terms in six double shuffles, not 20:
+// the first two exchanges each hand half of a lane's values to its
+// partner, the last three sum one value over the rest.  Lane l ends with
+// the sum of term audit_of_lane(l); a fixed order, so the same bits from
+// run to run.
+__device__ __forceinline__ double warp_sum4_d(const double* a, int lane) {
+  const unsigned full = 0xffffffffu;
+  const bool h1 = lane & 16, h0 = lane & 8;
+  double s0 = h1 ? a[2] : a[0], s1 = h1 ? a[3] : a[1];
+  s0 += __shfl_xor_sync(full, h1 ? a[0] : a[2], 16);
+  s1 += __shfl_xor_sync(full, h1 ? a[1] : a[3], 16);
+  double u = h0 ? s1 : s0;
+  u += __shfl_xor_sync(full, h0 ? s0 : s1, 8);
+  for (int o = 4; o > 0; o >>= 1) u += __shfl_xor_sync(full, u, o);
+  return u;
+}
+
+__device__ __forceinline__ int audit_of_lane(int lane) {
+  return ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1);
 }
 
 // ops/thermal.py::thermal for one cell, with the pass's doric output
@@ -207,6 +266,8 @@ __global__ void __launch_bounds__(kThreads) chemistry_cells(Chem p) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < p.ncell;
   unsigned ion = 0, passes = 0, subs = 0, max_subs = 0;
+  // the audit's terms of this cell (photonstats.grid_counts)
+  double audit[kNumAudit] = {0.0, 0.0, 0.0, 0.0};
   if (live) {
     const real eps = p.eps;
     const real nd = p.ndens[i];
@@ -245,12 +306,8 @@ __global__ void __launch_bounds__(kThreads) chemistry_cells(Chem p) {
       passes = nit;
       const real prev = kCompressed ? hav0 : clamp_min(rl(1.0) - hav1, eps);
       const real rhe = nd * (hav1 + p.abu_c);
-      if (kHeat) {
-        // recombination_rates at the cell's average temperature
-        brech = clump_bh * r_pow(t_av * p.inv_1e4, p.albpow);
-        acol = (p.colh0 * r_sqrt(t_av)) *
-               r_exp((rl(1.0) / t_av) * p.neg_temph0);
-      }
+      // recombination_rates at the cell's average temperature
+      if (kHeat) rates_at(p, t_av, clump_bh, brech, acol);
       // doric (doric.f90:96-124)
       const real aih0 = ph + rhe * acol;
       const real delth = aih0 + rhe * brech;
@@ -313,25 +370,54 @@ __global__ void __launch_bounds__(kThreads) chemistry_cells(Chem p) {
                       (r_abs(t_av_in - t_av) > rl(100.0)));
     }
     ion = cond ? 1u : 0u;
-    if (kCompressed) {
-      p.out_int[i] = compress(h1, h0);
-      p.out_av[i] = compress(hav1, hav0);
-    } else {
-      p.out_int[i] = h1;
-      p.out_av[i] = hav1;
-    }
+    const real o_int = kCompressed ? compress(h1, h0) : h1;
+    const real o_av = kCompressed ? compress(hav1, hav0) : hav1;
+    p.out_int[i] = o_int;
+    p.out_av[i] = o_av;
     if (kHeat) {
       p.out_tint[i] = t_int;
       p.out_tav[i] = t_av;
     }
+    if (p.apartial) {
+      // grid_counts on the stored outputs, op for op: x1 and x0 decoded
+      // from each (or x0 = 1 - x1), the rates at the output temperature
+      // t_av (heat) or at the scalar initial temperature
+      const real x1i = kCompressed ? xh1_of(o_int) : o_int;
+      const real x0i = kCompressed ? xh0_of(o_int) : rl(1.0) - o_int;
+      const real x1a = kCompressed ? xh1_of(o_av) : o_av;
+      const real x0a = kCompressed ? xh0_of(o_av) : rl(1.0) - o_av;
+      real brech_a, acol_a;
+      if (kHeat) {
+        rates_at(p, t_av, clump_bh, brech_a, acol_a);
+      } else {
+        brech_a = p.clump ? (p.clump[i * p.clump_stride] * p.bh00) *
+                                p.audit_pow
+                          : p.audit_brech;
+        acol_a = (p.colh0 * r_sqrt(p.audit_temp)) * r_exp(p.audit_neg_t);
+      }
+      const real ne = nd * (x1a + p.abu_c);
+      audit[kH0] = (double)(nd * x0i);
+      audit[kH1] = (double)(nd * x1i);
+      audit[kRec] = (double)(((nd * x1a) * ne) * brech_a);
+      audit[kColl] = (double)(((nd * x0a) * ne) * acol_a);
+    }
   }
   const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned w[kNumCounters] = {
       __reduce_add_sync(full, ion), __reduce_max_sync(full, passes),
       __reduce_add_sync(full, passes), __reduce_add_sync(full, subs),
       __reduce_max_sync(full, max_subs)};
+  // the block's audit sums, in double: warp shuffles, then the warps in
+  // order (a fixed order, so the same bits from run to run); the
+  // counters' warp sums share their barrier
+  __shared__ double s_a[kNumAudit][kWarps];
+  if (p.apartial) {
+    const double wsum = warp_sum4_d(audit, lane);
+    if ((lane & 7) == 0) s_a[audit_of_lane(lane)][warp] = wsum;
+  }
 #ifdef C2R_CHEM_ATOMIC_COUNTERS
-  if ((threadIdx.x & 31) == 0) {
+  if (lane == 0) {
     if (w[kConv]) atomicAdd(p.counters + kConv, (unsigned long long)w[kConv]);
     atomicMax(p.counters + kMaxPasses, (unsigned long long)w[kMaxPasses]);
     atomicAdd(p.counters + kPasses, (unsigned long long)w[kPasses]);
@@ -341,10 +427,11 @@ __global__ void __launch_bounds__(kThreads) chemistry_cells(Chem p) {
                 (unsigned long long)w[kMaxSubsteps]);
     }
   }
+  if (p.apartial) __syncthreads();
 #else
   __shared__ unsigned s_w[kNumCounters][kWarps];
-  if ((threadIdx.x & 31) == 0) {
-    for (int c = 0; c < kNumCounters; ++c) s_w[c][threadIdx.x >> 5] = w[c];
+  if (lane == 0) {
+    for (int c = 0; c < kNumCounters; ++c) s_w[c][warp] = w[c];
   }
   __syncthreads();
   if (threadIdx.x < kNumCounters) {
@@ -357,14 +444,75 @@ __global__ void __launch_bounds__(kThreads) chemistry_cells(Chem p) {
     p.partial[(long long)c * gridDim.x + blockIdx.x] = v;
   }
 #endif
+  // a second warp writes the audit's partials
+  if (p.apartial && warp == 1 && lane < kNumAudit) {
+    double v = 0.0;
+    for (int k = 0; k < kWarps; ++k) v += s_a[lane][k];
+    p.apartial[(long long)lane * gridDim.x + blockIdx.x] = v;
+  }
 }
 
-// The counters from the per-block partials: one block, sums and maxima.
+// The reduce's first stage, where the cell launch has more blocks than
+// kChunks: block (c, q) sums (or, for a maximum, maxes) chunk c of
+// quantity q's per-block partials, a contiguous range, in a fixed order:
+// q < kNumCounters a counter (where counters is not null), else an audit
+// sum (where audit is not null).  The second stage, reduce_counters, then
+// reduces kChunks values per quantity.  One block reading every partial
+// (the second stage alone) is bound by its loads' latency.
+__global__ void __launch_bounds__(kThreads)
+reduce_chunks(const unsigned long long* partial, const double* apartial,
+              long long nblocks, unsigned long long* counters,
+              double* audit) {
+  __shared__ unsigned long long buf[kThreads];
+  __shared__ double dbuf[kThreads];
+  const int q = blockIdx.y, c = blockIdx.x, t = threadIdx.x;
+  const long long per = (nblocks + kChunks - 1) / kChunks;
+  const long long lo = c * per, hi = lo + per < nblocks ? lo + per : nblocks;
+  if (q < kNumCounters) {
+    if (!counters) return;
+    const bool mx = is_max(q);
+    unsigned long long v = 0;
+    for (long long b = lo + t; b < hi; b += kThreads) {
+      const unsigned long long x = partial[q * nblocks + b];
+      v = mx ? (x > v ? x : v) : v + x;
+    }
+    buf[t] = v;
+    __syncthreads();
+    for (int h = kThreads / 2; h > 0; h >>= 1) {
+      if (t < h) {
+        const unsigned long long x = buf[t + h];
+        buf[t] = mx ? (x > buf[t] ? x : buf[t]) : buf[t] + x;
+      }
+      __syncthreads();
+    }
+    if (t == 0) counters[q * kChunks + c] = buf[0];
+  } else {
+    if (!audit) return;
+    const int a = q - kNumCounters;
+    double v = 0.0;
+    for (long long b = lo + t; b < hi; b += kThreads)
+      v += apartial[a * nblocks + b];
+    dbuf[t] = v;
+    __syncthreads();
+    for (int h = kThreads / 2; h > 0; h >>= 1) {
+      if (t < h) dbuf[t] += dbuf[t + h];
+      __syncthreads();
+    }
+    if (t == 0) audit[a * kChunks + c] = dbuf[0];
+  }
+}
+
+// The counters (where not null) and the audit sums (where not null) from
+// the per-block partials (or the first stage's chunks): one block; the
+// counters' sums and maxima exact, the audit's sums in double, in a fixed
+// order.
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_counters(const unsigned long long* partial, long long nblocks,
-                unsigned long long* counters) {
+                unsigned long long* counters, const double* apartial,
+                real* audit) {
   __shared__ unsigned long long buf[kReduceThreads];
-  for (int c = 0; c < kNumCounters; ++c) {
+  __shared__ double dbuf[kReduceThreads];
+  for (int c = 0; counters && c < kNumCounters; ++c) {
     unsigned long long v = 0;
     for (long long b = threadIdx.x; b < nblocks; b += kReduceThreads) {
       const unsigned long long x = partial[c * nblocks + b];
@@ -384,6 +532,19 @@ reduce_counters(const unsigned long long* partial, long long nblocks,
     if (threadIdx.x == 0) counters[c] = buf[0];
     __syncthreads();
   }
+  for (int a = 0; audit && a < kNumAudit; ++a) {
+    double v = 0.0;
+    for (long long b = threadIdx.x; b < nblocks; b += kReduceThreads)
+      v += apartial[a * nblocks + b];
+    dbuf[threadIdx.x] = v;
+    __syncthreads();
+    for (int h = kReduceThreads / 2; h > 0; h >>= 1) {
+      if (threadIdx.x < h) dbuf[threadIdx.x] += dbuf[threadIdx.x + h];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) audit[a] = (real)dbuf[0];
+    __syncthreads();
+  }
 }
 
 }  // namespace
@@ -393,9 +554,10 @@ extern "C" {
 // One chemistry pass over ncell cells.  loss: the per-cell
 // photon_loss_rate (stride 1) or a 0-d one (stride 0), or null for the
 // scalar s[kLossScalar].  brech, acol: the isothermal build's rates
-// (brech stride 0 or 1; ignored by the heat build).  clump: the heat
-// build's clumping (stride 0 or 1), or null for s[kClumpBh], the
-// product clumping * BH00 of a Python scalar clumping.  phiheat, t_cur,
+// (brech stride 0 or 1; ignored by the heat build).  clump: the
+// clumping (stride 0 or 1), or null for a Python scalar clumping: the heat
+// build then takes s[kClumpBh], the product clumping * BH00, and the
+// isothermal audit s[kAuditBrech].  phiheat, t_cur,
 // t_av, cie: the heat build's grids and the 61-point cooling table.
 // s: kNumScalars doubles in Scalar's order, each cast to the build's
 // type as torch casts a Python float; dt_p and coeff_p, where not null,
@@ -403,8 +565,11 @@ extern "C" {
 // reads at launch instead (the device loop's graph replays one capture
 // over steps of another dt).  counters: 5 zeroed 64-bit
 // integers (Counter); partial: scratch of 5 x c2r_chemistry_blocks(ncell)
-// of them.  heat, compressed: the instance.  Returns the first CUDA error
-// code, 0 on success.
+// of them (the per-block partials, then the reduce's first stage).  audit: 4 sums out (Audit; the isothermal build takes its
+// rates from s[kAuditBrech..kAuditNegT] and clump), or null for none;
+// apartial: scratch of 4 x c2r_chemistry_blocks(ncell) doubles.  heat,
+// compressed: the instance.  Returns the first CUDA error code, 0 on
+// success.
 int c2r_chemistry(const real* ndens, const real* xh1_old, const real* xh_int,
                   const real* xh_av, const real* phih, const real* loss,
                   int loss_stride, const real* brech, int brech_stride,
@@ -415,7 +580,7 @@ int c2r_chemistry(const real* ndens, const real* xh1_old, const real* xh_int,
                   int max_iter, int max_sub, int heat, int compressed,
                   real* out_int, real* out_av, real* out_tint, real* out_tav,
                   unsigned long long* counters, unsigned long long* partial,
-                  void* stream) {
+                  double* apartial, real* audit, void* stream) {
   Chem p;
   p.ndens = ndens;
   p.xh1_old = xh1_old;
@@ -436,6 +601,8 @@ int c2r_chemistry(const real* ndens, const real* xh1_old, const real* xh_int,
   p.out_tav = out_tav;
   p.counters = counters;
   p.partial = partial;
+  p.apartial = audit ? apartial : nullptr;
+  p.audit = audit;
   p.ncell = ncell;
   p.loss_stride = loss_stride;
   p.brech_stride = brech_stride;
@@ -468,6 +635,10 @@ int c2r_chemistry(const real* ndens, const real* xh1_old, const real* xh_int,
   p.dt_p = dt_p;
   p.coeff_p = coeff_p;
   p.rate_floor = rl(1e-50);
+  p.audit_brech = (real)s[kAuditBrech];
+  p.audit_pow = (real)s[kAuditPow];
+  p.audit_temp = (real)s[kAuditTemp];
+  p.audit_neg_t = (real)s[kAuditNegT];
   if (ncell <= 0) return 0;
   if (loss_stride < 0 || loss_stride > 1 || brech_stride < 0 ||
       brech_stride > 1 || clump_stride < 0 || clump_stride > 1 ||
@@ -476,6 +647,7 @@ int c2r_chemistry(const real* ndens, const real* xh1_old, const real* xh_int,
   if (heat ? (!phiheat || !t_cur || !t_av || !cie || !out_tint || !out_tav)
            : (!brech || !acol))
     return (int)cudaErrorInvalidValue;
+  if (audit && !apartial) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long blocks = (ncell + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -492,17 +664,41 @@ int c2r_chemistry(const real* ndens, const real* xh1_old, const real* xh_int,
       chemistry_cells<false, false><<<grid, block, 0, st>>>(p);
   }
   cudaError_t err = cudaGetLastError();
-#ifndef C2R_CHEM_ATOMIC_COUNTERS
   if (err != cudaSuccess) return (int)err;
-  reduce_counters<<<1, kReduceThreads, 0, st>>>(partial, blocks, counters);
-  err = cudaGetLastError();
+#ifdef C2R_CHEM_ATOMIC_COUNTERS
+  unsigned long long* reduced = nullptr;   // the kernel added them
+#else
+  unsigned long long* reduced = counters;
 #endif
+  if (reduced || audit) {
+    const unsigned long long* cin = partial;
+    const double* ain = apartial;
+    long long n = blocks;
+    if (blocks > kChunks) {
+      // the first stage's chunks go after the per-block partials
+      unsigned long long* c2 = partial + kNumCounters * blocks;
+      double* a2 = audit ? apartial + kNumAudit * blocks : nullptr;
+      reduce_chunks<<<dim3(kChunks, kNumCounters + kNumAudit), kThreads, 0,
+                      st>>>(partial, apartial, blocks, reduced ? c2 : nullptr,
+                            a2);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      cin = c2;
+      ain = a2;
+      n = kChunks;
+    }
+    reduce_counters<<<1, kReduceThreads, 0, st>>>(cin, n, reduced, ain,
+                                                  audit);
+    err = cudaGetLastError();
+  }
   return (int)err;
 }
 
-// Blocks of the cell launch for ncell cells: the partials hold 5 x this.
+// The partials' length per quantity for ncell cells: the cell launch's
+// blocks and the reduce's first-stage chunks (the counters' scratch holds
+// 5 x this, the audit's 4 x this).
 long long c2r_chemistry_blocks(long long ncell) {
-  return (ncell + kThreads - 1) / kThreads;
+  return (ncell + kThreads - 1) / kThreads + kChunks;
 }
 
 const char* c2r_error_string(int code) {

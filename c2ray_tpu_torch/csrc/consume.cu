@@ -89,6 +89,33 @@
 //    block count comes from c2r_consume_nblocks, which the wrapper calls
 //    to size the partials.
 //
+// The window mode (K2w, consume_windows): the same rate pass on a batch of
+// B source-centred windows of p^3 cells, p = 2r + 1, the output of the
+// window march (K3) on the windows the gather (K4) copied, before the
+// scatter-add (K5).  Replaces no Pallas kernel: on the TPU XLA fuses the
+// vmapped c2ray_tpu/ops/sweep.py::_rate_pass of windowed_batch, and the
+// plain PyTorch version runs it as ~275 eager torch calls per batch.  It
+// shares the grid mode's device functions (the geometry and stop tests,
+// the mixture and the table reads), so it has every build and instance
+// the grid mode has, with the same order of operations.  What bounds it
+// on the H100: as the grid mode, the SFU where the windows are lit, else
+// its bytes (cdo and wins read, phih written: 15.1 MB at r = 8 x 256 in
+// float32, 0.0045 ms).  Design:
+//  * one thread per (window, cell), grid (ceil(p^3 / 256), B): a block is
+//    a chunk of one window's cells, k fastest, so the reads are
+//    contiguous; the offsets from the window's centre are integers (no
+//    wrap: every field is already centred), and the trace boundary is
+//    the window's surface (p_lim = q_lim = min(max_shell, r));
+//  * each cell writes its own rate (and heat), exactly zero where dead,
+//    so no sum over sources and no atomics; a zero-flux padding window
+//    is not skipped for its flux;
+//  * the losses reduce in two deterministic stages in ONE launch: warp
+//    shuffles and a per-block sum into (2, B, blocks-per-window)
+//    partials; the last block to finish (a device counter, reset by that
+//    block) sums each window's partials in a fixed order in double, then
+//    the two sums over the batch, so a windowed batch makes no torch
+//    reduction and one launch.
+//
 // Element type and rate mode: each build is one shared library.  The
 // element type (real.cuh) is float32, or float64 with -DC2R_F64; the
 // rates are the exponential mixture, or with -DC2R_TABLE the lookup
@@ -161,6 +188,7 @@ struct Consume {
   real* phih;           // (n, n, n) grid frame
   real* phiheat;        // (n, n, n) grid frame (kHeat)
   real* partial;        // (2, B, nblocks)
+  real* loss;           // window mode: (2, B) tallies, then their 2 sums
   int K, Kx, nsrc, n, max_shell, num_tau;
   real dr, rate_scale, lcol, rmax2, max_coldensh;
   // where not null, read at launch in place of dr, rate_scale, lcol, rmax2
@@ -296,42 +324,186 @@ __device__ __forceinline__ real table_tally(
   return phi_cell / vol_ph;
 }
 
-// kTable: table rates, else the mixture.  kLLS: 0 LLS off, 1 the scalar
-// column p.lcol, 2 the grid p.lls.
-template <bool kTable, int kLLS, bool kHeat, bool kXray>
-__global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
-  if (p.dr_p) p.dr = (real)*p.dr_p;
-  if (p.rate_scale_p) p.rate_scale = (real)*p.rate_scale_p;
-  if (p.lcol_p) p.lcol = (real)*p.lcol_p;
-  if (p.rmax2_p) p.rmax2 = (real)*p.rmax2_p;
-  constexpr bool kTally = kLLS != 0;
-  extern __shared__ real smem[];
-  const int nsrc = p.nsrc, K = p.K, Kx = kXray ? p.Kx : 0;
-  real* red = smem;                             // [2][B][kTileJ]
-  real* s_nf = red + 2 * nsrc * kTileJ;         // [B]
-  real* s_a = s_nf + nsrc;                      // [K]
-  real* s_w = s_a + K;                          // [K]
-  real* s_hw = s_w + K;                         // [K] (kHeat)
-  real* s_nfx = s_hw + (kHeat ? K : 0);         // [B] (kXray)
-  real* s_xa = s_nfx + (kXray ? nsrc : 0);      // [Kx] (kXray)
-  real* s_xw = s_xa + Kx;                       // [Kx]
-  real* s_xhw = s_xw + Kx;                      // [Kx] (kHeat)
-  int* s_pos = reinterpret_cast<int*>(s_xhw + (kHeat ? Kx : 0));  // [B][3]
-  const int tid = threadIdx.y * kTileK + threadIdx.x;
-  for (int q = tid; q < 3 * nsrc; q += kThreads) s_pos[q] = p.srcpos[q];
-  for (int q = tid; q < nsrc; q += kThreads) {
-    s_nf[q] = p.nflux[q];
-    if (kXray) s_nfx[q] = p.nfx[q];
-  }
-  for (int q = tid; q < K; q += kThreads) {
+// The mixture terms staged in a block's shared memory (K = Kx = 0 in a
+// table build): a_k, w_k and the heat weights hw_k (kHeat), then the X-ray
+// mixture's (kXray).
+struct Terms {
+  const real *a, *w, *hw, *xa, *xw, *xhw;
+  int K, Kx;
+};
+
+// Stage the terms after `base` in shared memory -> the terms and the
+// first element past them.
+template <bool kHeat, bool kXray>
+__device__ __forceinline__ Terms stage_terms(const Consume& p, real* base,
+                                             int tid, int nthreads) {
+  const int K = p.K, Kx = kXray ? p.Kx : 0;
+  real* s_a = base;
+  real* s_w = s_a + K;
+  real* s_hw = s_w + K;                         // (kHeat)
+  real* s_xa = s_hw + (kHeat ? K : 0);          // (kXray)
+  real* s_xw = s_xa + Kx;
+  real* s_xhw = s_xw + Kx;                      // (kHeat)
+  for (int q = tid; q < K; q += nthreads) {
     s_a[q] = p.tab[0][q];
     s_w[q] = p.tab[1][q];
     if (kHeat) s_hw[q] = p.tab[2][q];
   }
-  for (int q = tid; q < Kx; q += kThreads) {
+  for (int q = tid; q < Kx; q += nthreads) {
     s_xa[q] = p.tab[3][q];
     s_xw[q] = p.tab[4][q];
     if (kHeat) s_xhw[q] = p.tab[5][q];
+  }
+  return Terms{s_a, s_w, s_hw, s_xa, s_xw, s_xhw, K, Kx};
+}
+
+// Elements of the staged terms.
+__host__ __device__ __forceinline__ int terms_elems(int K, int Kx, bool heat,
+                                                    bool xray) {
+  return (heat ? 3 : 2) * (K + (xray ? Kx : 0));
+}
+
+// A (cell, source) pair at integer offsets (oi, oj, ok) from its source,
+// whose column out is cd: the geometry and the stop tests of _rate_pass.
+// The dead-for-sure test comes first (no geometry needed; the R_max barrier
+// is exact there), then a live pair's path and incoming column.  -> live.
+__device__ __forceinline__ bool pair_geometry(
+    const Consume& p, int oi, int oj, int ok, bool valid, real cd, real nd,
+    real col_hi, bool can_stop, int& cheb, real& dist2, real& path,
+    real& cin) {
+  cheb = max(max(abs(oi), abs(oj)), abs(ok));
+  const real fi = (real)oi, fj = (real)oj, fk = (real)ok;
+  dist2 = fi * fi + fj * fj + fk * fk;
+  bool live = valid && cheb <= p.max_shell && !(dist2 > p.rmax2) &&
+              !(can_stop && cd - col_hi > p.max_coldensh);
+  const real dom = (real)cheb;
+  path = rl(0.5);
+  cin = rl(0.);
+  if (live) {
+    const real safe_d = r_max(dom, rl(1.));
+    const real t2 = dist2 - dom * dom;
+    if (cheb != 0) path = r_sqrt(t2 / (safe_d * safe_d) + rl(1.));
+    const real colcell = nd * (path * p.dr);
+    cin = max0(cd - colcell);
+    live = !(cin > p.max_coldensh);
+  }
+  return live;
+}
+
+// What a live pair deposits: its per-atom rate photo_cell * rate_scale /
+// nd, its heat (kHeat) heat * rate_scale, its boundary loss phi_out /
+// vol_ph (on the trace boundary, else 0) and its LLS tally (kLLS != 0).
+struct PairOut {
+  real rate, heat, loss, lls;
+};
+
+// kTable: table rates, else the mixture.  kLLS: 0 LLS off, 1 the scalar
+// column p.lcol, 2 a grid column (lcol, the cell's).
+template <bool kTable, int kLLS, bool kHeat, bool kXray>
+__device__ __forceinline__ PairOut pair_rates(
+    const Consume& p, const Terms& m, real nf, real nfx, real cd, real cin,
+    real path, real dist2, bool is_src, real nd, real lcol, bool bnd) {
+  constexpr bool kTally = kLLS != 0;
+  real vol_ph = kFourPi * dist2 * path;
+  if (is_src) vol_ph = rl(1.);
+  real photo_cell, phi_out, heat = rl(0.), llsc = rl(0.);
+  if (kTable) {
+    const real tau_in = cin * kSigma, tau_out = cd * kSigma;
+    const real dtau = tau_out - tau_in;
+    const TabPos q_in = tab_pos(p, tau_in), q_out = tab_pos(p, tau_out);
+    const TabPos q_thin =
+        kThinMid ? tab_pos(p, rl(0.5) * (tau_in + tau_out)) : q_in;
+    const bool thick = r_abs(dtau) > p.photo_limit;
+    const bool hthick = r_abs(dtau) > p.heat_limit;
+    table_source<kHeat>(p.tab, nf, dtau, q_in, q_out, q_thin, thick, hthick,
+                        vol_ph, photo_cell, phi_out, heat);
+    if (kXray) {
+      real xphoto_cell, xphi_out, xheat = rl(0.);
+      table_source<kHeat>(p.tab + 4, nfx, dtau, q_in, q_out, q_thin, thick,
+                          hthick, vol_ph, xphoto_cell, xphi_out, xheat);
+      photo_cell = photo_cell + xphoto_cell;
+      phi_out = phi_out + xphi_out;
+      if (kHeat) heat = heat + xheat;
+    }
+    if (kTally) {
+      const real cold_pre = max0(cin - lcol * path);
+      const real tau_pre = cold_pre * kSigma;
+      const real dtau_t = tau_in - tau_pre;
+      const TabPos q_pre = tab_pos(p, tau_pre);
+      const TabPos q_tt =
+          kThinMid ? tab_pos(p, rl(0.5) * (tau_pre + tau_in)) : q_pre;
+      const bool tthick = r_abs(dtau_t) > p.photo_limit;
+      llsc = table_tally(p.tab, nf, dtau_t, q_pre, q_in, q_tt, tthick,
+                         vol_ph);
+      if (kXray)
+        llsc = llsc + table_tally(p.tab + 4, nfx, dtau_t, q_pre, q_in, q_tt,
+                                  tthick, vol_ph);
+    }
+  } else {
+    const real tau_in = cin * kSigma;
+    const real dtau = (cd - cin) * kSigma;
+    real tau_pre = rl(0.), dtau_pre = rl(0.);
+    if (kTally) {
+      const real cold_pre = max0(cin - lcol * path);
+      tau_pre = cold_pre * kSigma;
+      dtau_pre = (cin - cold_pre) * kSigma;
+    }
+    real phi_in, phi_cell, heat_acc, lls_acc;
+    mixture<kTally, kHeat>(m.a, m.w, m.hw, m.K, tau_in, dtau, tau_pre,
+                           dtau_pre, phi_in, phi_cell, heat_acc, lls_acc);
+    phi_in = nf * phi_in;
+    phi_cell = nf * phi_cell;
+    phi_out = phi_in - phi_cell;
+    photo_cell = phi_cell / vol_ph;
+    if (kHeat) heat = (nf * heat_acc) / vol_ph;
+    if (kTally) llsc = nf * lls_acc / vol_ph;
+    if (kXray) {
+      real xphi_in, xphi_cell, xheat_acc, xlls_acc;
+      mixture<kTally, kHeat>(m.xa, m.xw, m.xhw, m.Kx, tau_in, dtau, tau_pre,
+                             dtau_pre, xphi_in, xphi_cell, xheat_acc,
+                             xlls_acc);
+      xphi_in = nfx * xphi_in;
+      xphi_cell = nfx * xphi_cell;
+      phi_out = phi_out + (xphi_in - xphi_cell);
+      photo_cell = photo_cell + xphi_cell / vol_ph;
+      if (kHeat) heat = heat + (nfx * xheat_acc) / vol_ph;
+      if (kTally) llsc = llsc + nfx * xlls_acc / vol_ph;
+    }
+  }
+  PairOut o;
+  o.rate = photo_cell * p.rate_scale / nd;
+  o.heat = kHeat ? heat * p.rate_scale : rl(0.);
+  o.loss = bnd ? phi_out / vol_ph : rl(0.);
+  o.lls = kTally ? llsc : rl(0.);
+  return o;
+}
+
+__device__ __forceinline__ void read_step_scalars(Consume& p) {
+  if (p.dr_p) p.dr = (real)*p.dr_p;
+  if (p.rate_scale_p) p.rate_scale = (real)*p.rate_scale_p;
+  if (p.lcol_p) p.lcol = (real)*p.lcol_p;
+  if (p.rmax2_p) p.rmax2 = (real)*p.rmax2_p;
+}
+
+// K2, the grid mode: one thread per grid cell, the batch's sources summed
+// in a fixed order.
+template <bool kTable, int kLLS, bool kHeat, bool kXray>
+__global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
+  read_step_scalars(p);
+  extern __shared__ real smem[];
+  const int nsrc = p.nsrc;
+  real* red = smem;                             // [2][B][kTileJ]
+  real* s_nf = red + 2 * nsrc * kTileJ;         // [B]
+  real* s_nfx = s_nf + nsrc;                    // [B] (kXray)
+  const int tid = threadIdx.y * kTileK + threadIdx.x;
+  const Terms m = stage_terms<kHeat, kXray>(p, s_nfx + (kXray ? nsrc : 0),
+                                            tid, kThreads);
+  int* s_pos = reinterpret_cast<int*>(
+      s_nfx + (kXray ? nsrc : 0) + terms_elems(m.K, m.Kx, kHeat, kXray));
+  for (int q = tid; q < 3 * nsrc; q += kThreads) s_pos[q] = p.srcpos[q];
+  for (int q = tid; q < nsrc; q += kThreads) {
+    s_nf[q] = p.nflux[q];
+    if (kXray) s_nfx[q] = p.nfx[q];
   }
   __syncthreads();
 
@@ -357,108 +529,25 @@ __global__ void __launch_bounds__(kThreads) consume_cells(Consume p) {
     const int oi = wrap1(i - s_pos[3 * src] + c, n) - c;
     const int oj = wrap1(j - s_pos[3 * src + 1] + c, n) - c;
     const int ok = wrap1(k - s_pos[3 * src + 2] + c, n) - c;
-    const int cheb = max(max(abs(oi), abs(oj)), abs(ok));
     const real cd = valid
         ? __ldg(p.cdo + src * n3 + ((size_t)(oi + c) * n + (oj + c)) * n +
                 (ok + c))
         : rl(0.);
-    const real fi = (real)oi, fj = (real)oj, fk = (real)ok;
-    const real dist2 = fi * fi + fj * fj + fk * fk;
-    // dead for sure: no geometry needed (the R_max barrier is exact here)
-    bool live = valid && cheb <= p.max_shell && !(dist2 > p.rmax2) &&
-                !(can_stop && cd - col_hi > p.max_coldensh);
-    // geometry, exactly _rate_pass
-    const bool is_src = cheb == 0;
-    const real dom = (real)cheb;
-    real path = rl(0.5), cin = rl(0.);
-    if (live) {
-      const real safe_d = r_max(dom, rl(1.));
-      const real t2 = dist2 - dom * dom;
-      if (!is_src) path = r_sqrt(t2 / (safe_d * safe_d) + rl(1.));
-      const real colcell = nd * (path * p.dr);
-      cin = max0(cd - colcell);
-      live = !(cin > p.max_coldensh);
-    }
-
+    int cheb;
+    real dist2, path, cin;
+    const bool live = pair_geometry(p, oi, oj, ok, valid, cd, nd, col_hi,
+                                    can_stop, cheb, dist2, path, cin);
     real loss = rl(0.), lls = rl(0.);
     if (live) {
-      real vol_ph = kFourPi * dist2 * path;
-      if (is_src) vol_ph = rl(1.);
-      real photo_cell, phi_out, heat = rl(0.), llsc = rl(0.);
-      if (kTable) {
-        const real tau_in = cin * kSigma, tau_out = cd * kSigma;
-        const real dtau = tau_out - tau_in;
-        const TabPos q_in = tab_pos(p, tau_in), q_out = tab_pos(p, tau_out);
-        const TabPos q_thin =
-            kThinMid ? tab_pos(p, rl(0.5) * (tau_in + tau_out)) : q_in;
-        const bool thick = r_abs(dtau) > p.photo_limit;
-        const bool hthick = r_abs(dtau) > p.heat_limit;
-        table_source<kHeat>(p.tab, s_nf[src], dtau, q_in, q_out, q_thin,
-                            thick, hthick, vol_ph, photo_cell, phi_out,
-                            heat);
-        if (kXray) {
-          real xphoto_cell, xphi_out, xheat = rl(0.);
-          table_source<kHeat>(p.tab + 4, s_nfx[src], dtau, q_in, q_out,
-                              q_thin, thick, hthick, vol_ph, xphoto_cell,
-                              xphi_out, xheat);
-          photo_cell = photo_cell + xphoto_cell;
-          phi_out = phi_out + xphi_out;
-          if (kHeat) heat = heat + xheat;
-        }
-        if (kTally) {
-          const real cold_pre = max0(cin - lcol * path);
-          const real tau_pre = cold_pre * kSigma;
-          const real dtau_t = tau_in - tau_pre;
-          const TabPos q_pre = tab_pos(p, tau_pre);
-          const TabPos q_tt =
-              kThinMid ? tab_pos(p, rl(0.5) * (tau_pre + tau_in)) : q_pre;
-          const bool tthick = r_abs(dtau_t) > p.photo_limit;
-          llsc = table_tally(p.tab, s_nf[src], dtau_t, q_pre, q_in, q_tt,
-                             tthick, vol_ph);
-          if (kXray)
-            llsc = llsc + table_tally(p.tab + 4, s_nfx[src], dtau_t, q_pre,
-                                      q_in, q_tt, tthick, vol_ph);
-        }
-      } else {
-        const real tau_in = cin * kSigma;
-        const real dtau = (cd - cin) * kSigma;
-        real tau_pre = rl(0.), dtau_pre = rl(0.);
-        if (kTally) {
-          const real cold_pre = max0(cin - lcol * path);
-          tau_pre = cold_pre * kSigma;
-          dtau_pre = (cin - cold_pre) * kSigma;
-        }
-        real phi_in, phi_cell, heat_acc, lls_acc;
-        mixture<kTally, kHeat>(s_a, s_w, s_hw, K, tau_in, dtau, tau_pre,
-                               dtau_pre, phi_in, phi_cell, heat_acc,
-                               lls_acc);
-        const real nf = s_nf[src];
-        phi_in = nf * phi_in;
-        phi_cell = nf * phi_cell;
-        phi_out = phi_in - phi_cell;
-        photo_cell = phi_cell / vol_ph;
-        if (kHeat) heat = (nf * heat_acc) / vol_ph;
-        if (kTally) llsc = nf * lls_acc / vol_ph;
-        if (kXray) {
-          real xphi_in, xphi_cell, xheat_acc, xlls_acc;
-          mixture<kTally, kHeat>(s_xa, s_xw, s_xhw, Kx, tau_in, dtau,
-                                 tau_pre, dtau_pre, xphi_in, xphi_cell,
-                                 xheat_acc, xlls_acc);
-          const real nfx = s_nfx[src];
-          xphi_in = nfx * xphi_in;
-          xphi_cell = nfx * xphi_cell;
-          phi_out = phi_out + (xphi_in - xphi_cell);
-          photo_cell = photo_cell + xphi_cell / vol_ph;
-          if (kHeat) heat = heat + (nfx * xheat_acc) / vol_ph;
-          if (kTally) llsc = llsc + nfx * xlls_acc / vol_ph;
-        }
-      }
-      acc = acc + photo_cell * p.rate_scale / nd;
-      if (kHeat) hacc = hacc + heat * p.rate_scale;
       const bool bnd = oi == p_lim || oi == -q_lim || oj == p_lim ||
                        oj == -q_lim || ok == p_lim || ok == -q_lim;
-      if (bnd) loss = phi_out / vol_ph;
-      if (kTally) lls = llsc;
+      const PairOut o = pair_rates<kTable, kLLS, kHeat, kXray>(
+          p, m, s_nf[src], kXray ? s_nfx[src] : rl(0.), cd, cin, path, dist2,
+          cheb == 0, nd, lcol, bnd);
+      acc = acc + o.rate;
+      if (kHeat) hacc = hacc + o.heat;
+      loss = o.loss;
+      lls = o.lls;
     }
     // a dead pair adds +0 to the warp's sums: skip them when all are dead
     if (__any_sync(0xffffffffu, live)) {
@@ -501,6 +590,183 @@ __global__ void consume_reduce(const real* partial, int nblocks,
   if (threadIdx.x == 0) loss[blockIdx.x] = (real)buf[0];
 }
 
+// ---------------------------------------------------------------------------
+// K2w, the window mode: the rate pass of a batch of source-centred windows
+// ---------------------------------------------------------------------------
+
+// Blocks of one window's cells in the window launch.
+__host__ __device__ __forceinline__ int window_blocks(int p) {
+  const long long p3 = (long long)p * p * p;
+  return (int)((p3 + kThreads - 1) / kThreads);
+}
+
+// Blocks of a window launch that have finished; the last one to finish
+// reduces the partials and sets it back to 0 for the next launch.
+__device__ unsigned int g_windows_done = 0;
+
+__device__ __forceinline__ double warp_sum_d(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The last block of a window launch: each window's two tallies from its
+// blocks' partials, in double, then their sums over the batch.  A row
+// (tally, window) of at most 32 partials is one thread's, summed in order
+// (the rows of a batch of small windows at once); a longer row is one
+// warp's (each lane's partials in order, then the warp's shuffles).
+__device__ void windows_final(const real* partial, int nwin, int nbx,
+                              real* loss) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (nbx <= 32) {
+    for (int row = threadIdx.x; row < 2 * nwin; row += kThreads) {
+      const real* part = partial + (size_t)row * nbx;
+      double s = 0.0;
+      for (int b = 0; b < nbx; ++b) s += (double)__ldcg(part + b);
+      loss[row] = (real)s;
+    }
+  } else {
+    for (int row = warp; row < 2 * nwin; row += kThreads / 32) {
+      const real* part = partial + (size_t)row * nbx;
+      double s = 0.0;
+      for (int b = lane; b < nbx; b += 32) s += (double)__ldcg(part + b);
+      s = warp_sum_d(s);
+      if (lane == 0) loss[row] = (real)s;
+    }
+  }
+  __syncthreads();
+  if (warp < 2) {
+    double s = 0.0;
+    for (int w = lane; w < nwin; w += 32)
+      s += (double)__ldcg(loss + (size_t)warp * nwin + w);
+    s = warp_sum_d(s);
+    if (lane == 0) loss[2 * nwin + warp] = (real)s;
+  }
+}
+
+// One thread per (window, cell): grid (window_blocks(p), B), each block a
+// chunk of one window's p^3 cells, k fastest.  Every field is centred on
+// the window's source (its centre cell c = p / 2), so the offsets are the
+// cell's own coordinates less c, and the trace boundary is the window's
+// surface.  A dead pair writes exactly zero.
+template <bool kTable, int kLLS, bool kHeat, bool kXray>
+__global__ void __launch_bounds__(kThreads) consume_windows(Consume p) {
+  read_step_scalars(p);
+  extern __shared__ real smem[];
+  __shared__ bool s_last;
+  real* red = smem;                             // [2][kTileJ]
+  const int tid = threadIdx.x;
+  const Terms m = stage_terms<kHeat, kXray>(p, red + 2 * kTileJ, tid,
+                                            kThreads);
+  __syncthreads();
+
+  const int pw = p.n, c = pw / 2, pos_max = pw - 1 - c;
+  const int pp = pw * pw, p3 = pp * pw;
+  const int win = blockIdx.y, nbx = gridDim.x;
+  const int cell = blockIdx.x * kThreads + tid;
+  const bool valid = cell < p3;
+  const int q = valid ? cell : 0;
+  const int i = q / pp, jk = q - i * pp, j = jk / pw, k = jk - j * pw;
+  const size_t at = (size_t)win * p3 + q;
+  const real cd = valid ? __ldg(p.cdo + at) : rl(0.);
+  const real nd = valid ? __ldg(p.ndhi + at) : rl(1.);
+  const real lcol = kLLS == 2 ? (valid ? __ldg(p.lls + at) : rl(0.))
+                              : p.lcol;
+  const real col_hi = nd * (kSqrt3 * p.dr);
+  const bool can_stop = nd >= rl(0.);
+  const int p_lim = min(p.max_shell, pos_max), q_lim = min(p.max_shell, c);
+  const int oi = i - c, oj = j - c, ok = k - c;
+  int cheb;
+  real dist2, path, cin;
+  const bool live = pair_geometry(p, oi, oj, ok, valid, cd, nd, col_hi,
+                                  can_stop, cheb, dist2, path, cin);
+  real rate = rl(0.), heat = rl(0.), loss = rl(0.), lls = rl(0.);
+  if (live) {
+    const bool bnd = oi == p_lim || oi == -q_lim || oj == p_lim ||
+                     oj == -q_lim || ok == p_lim || ok == -q_lim;
+    const PairOut o = pair_rates<kTable, kLLS, kHeat, kXray>(
+        p, m, __ldg(p.nflux + win), kXray ? __ldg(p.nfx + win) : rl(0.), cd,
+        cin, path, dist2, cheb == 0, nd, lcol, bnd);
+    rate = o.rate;
+    heat = o.heat;
+    loss = o.loss;
+    lls = o.lls;
+  }
+  if (valid) {
+    p.phih[at] = rate;
+    if (kHeat) p.phiheat[at] = heat;
+  }
+  if (__any_sync(0xffffffffu, live)) {
+    loss = warp_sum(loss);
+    lls = warp_sum(lls);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane == 0) {
+    red[warp] = loss;
+    red[kTileJ + warp] = lls;
+  }
+  __syncthreads();
+  if (tid < 2) {
+    real s = rl(0.);
+    for (int w = 0; w < kTileJ; ++w) s += red[tid * kTileJ + w];
+    p.partial[((size_t)tid * p.nsrc + win) * nbx + blockIdx.x] = s;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned total = gridDim.x * gridDim.y;
+    s_last = atomicAdd(&g_windows_done, 1u) == total - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  windows_final(p.partial, p.nsrc, nbx, p.loss);
+  if (tid == 0) g_windows_done = 0;
+}
+
+// The launch parameters common to both modes (the C entries' arguments).
+Consume make_params(const real* cdo, const real* ndhi, const real* lls,
+                    const real* nflux, const real* nfx,
+                    const void* const* tables, int K, int Kx, int num_tau,
+                    int nsrc, int n, int max_shell, double dr,
+                    double rate_scale, double lcol, double rmax2,
+                    const double* const* step, double max_coldensh,
+                    double minlogtau, double dlogtau, double photo_limit,
+                    double heat_limit, real* phih, real* phiheat,
+                    real* partial, real* loss) {
+  Consume p;
+  p.cdo = cdo;
+  p.ndhi = ndhi;
+  p.lls = lls;
+  p.srcpos = nullptr;
+  p.nflux = nflux;
+  p.nfx = nfx;
+  for (int t = 0; t < 8; ++t) p.tab[t] = (const real*)tables[t];
+  p.phih = phih;
+  p.phiheat = phiheat;
+  p.partial = partial;
+  p.loss = loss;
+  p.K = kTableBuild ? 0 : K;
+  p.Kx = kTableBuild ? 0 : Kx;
+  p.nsrc = nsrc;
+  p.n = n;
+  p.max_shell = max_shell;
+  p.num_tau = num_tau;
+  p.dr = (real)dr;
+  p.rate_scale = (real)rate_scale;
+  p.lcol = (real)lcol;
+  p.rmax2 = (real)rmax2;
+  p.dr_p = step[0];
+  p.rate_scale_p = step[1];
+  p.lcol_p = step[2];
+  p.rmax2_p = step[3];
+  p.max_coldensh = (real)max_coldensh;
+  p.minlogtau = (real)minlogtau;
+  p.inv_dlogtau = (real)(1.0 / dlogtau);
+  p.photo_limit = (real)photo_limit;
+  p.heat_limit = (real)heat_limit;
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -538,36 +804,12 @@ int c2r_consume(const real* cdo, const real* ndhi, const real* lls,
                 double dlogtau, double photo_limit, double heat_limit,
                 real* phih, real* phiheat, real* partial, real* loss,
                 void* stream) {
-  Consume p;
-  p.cdo = cdo;
-  p.ndhi = ndhi;
-  p.lls = lls;
+  Consume p = make_params(cdo, ndhi, lls, nflux, nfx, tables, K, Kx,
+                          num_tau, nsrc, n, max_shell, dr, rate_scale, lcol,
+                          rmax2, step, max_coldensh, minlogtau, dlogtau,
+                          photo_limit, heat_limit, phih, phiheat, partial,
+                          loss);
   p.srcpos = srcpos;
-  p.nflux = nflux;
-  p.nfx = nfx;
-  for (int t = 0; t < 8; ++t) p.tab[t] = (const real*)tables[t];
-  p.phih = phih;
-  p.phiheat = phiheat;
-  p.partial = partial;
-  p.K = kTableBuild ? 0 : K;
-  p.Kx = kTableBuild ? 0 : Kx;
-  p.nsrc = nsrc;
-  p.n = n;
-  p.max_shell = max_shell;
-  p.num_tau = num_tau;
-  p.dr = (real)dr;
-  p.rate_scale = (real)rate_scale;
-  p.lcol = (real)lcol;
-  p.rmax2 = (real)rmax2;
-  p.dr_p = step[0];
-  p.rate_scale_p = step[1];
-  p.lcol_p = step[2];
-  p.rmax2_p = step[3];
-  p.max_coldensh = (real)max_coldensh;
-  p.minlogtau = (real)minlogtau;
-  p.inv_dlogtau = (real)(1.0 / dlogtau);
-  p.photo_limit = (real)photo_limit;
-  p.heat_limit = (real)heat_limit;
   if (use_lls < 0 || use_lls > 2) return (int)cudaErrorInvalidValue;
   const size_t smem =
       consume_smem_elems(nsrc, p.K, p.Kx, use_heat != 0, use_xray != 0) *
@@ -596,6 +838,58 @@ int c2r_consume(const real* cdo, const real* ndhi, const real* lls,
       partial, c2r_consume_nblocks(n), loss);
   err = cudaGetLastError();
   return (int)err;
+}
+
+// Blocks of one window's cells in the window launch at extent p: the
+// partials hold 2*B of these.
+int c2r_consume_windows_nblocks(int p) { return window_blocks(p); }
+
+// The window mode (K2w): the rate pass of B windows of p^3 cells, each
+// centred on its source.  cdo: (B, p, p, p) columns out, wins: (B, p, p, p)
+// neutral densities, lwins: the grid LLS columns' windows (use_lls 2,
+// else ignored), nflux, nfx: (B,).  phih (and phiheat with use_heat): (B,
+// p, p, p) out.  partial: scratch of 2*B*c2r_consume_windows_nblocks(p)
+// elements.  loss: 2*B + 2 elements out: the per-window boundary losses,
+// the per-window LLS tallies, then their two sums over the batch.  The
+// other arguments are c2r_consume's.  One launch: its last block reduces.
+// Returns the first CUDA error code, 0 on success.
+int c2r_consume_windows(const real* cdo, const real* wins, const real* lwins,
+                        const real* nflux, const real* nfx,
+                        const void* const* tables, int K, int Kx,
+                        int num_tau, int nwin, int p, int max_shell,
+                        double dr, double rate_scale, double lcol,
+                        double rmax2, const double* const* step, int use_lls,
+                        int use_heat, int use_xray, double max_coldensh,
+                        double minlogtau, double dlogtau, double photo_limit,
+                        double heat_limit, real* phih, real* phiheat,
+                        real* partial, real* loss, void* stream) {
+  const Consume prm = make_params(
+      cdo, wins, lwins, nflux, nfx, tables, K, Kx, num_tau, nwin, p,
+      max_shell, dr, rate_scale, lcol, rmax2, step, max_coldensh, minlogtau,
+      dlogtau, photo_limit, heat_limit, phih, phiheat, partial, loss);
+  if (use_lls < 0 || use_lls > 2 || nwin < 1 || nwin > 65535 || p < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(2 * kTileJ + terms_elems(prm.K, prm.Kx, use_heat != 0,
+                                        use_xray != 0)) * sizeof(real);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(window_blocks(p), nwin), block(kThreads);
+  const int v = use_lls * 4 + (use_heat ? 2 : 0) + (use_xray ? 1 : 0);
+  switch (v) {
+#define C2R_WINDOWS_CASE(L, H, X)                                         \
+    case L * 4 + H * 2 + X:                                               \
+      consume_windows<kTableBuild, L, H != 0, X != 0>                     \
+          <<<grid, block, smem, st>>>(prm);                               \
+      break;
+    C2R_WINDOWS_CASE(0, 0, 0) C2R_WINDOWS_CASE(0, 0, 1)
+    C2R_WINDOWS_CASE(0, 1, 0) C2R_WINDOWS_CASE(0, 1, 1)
+    C2R_WINDOWS_CASE(1, 0, 0) C2R_WINDOWS_CASE(1, 0, 1)
+    C2R_WINDOWS_CASE(1, 1, 0) C2R_WINDOWS_CASE(1, 1, 1)
+    C2R_WINDOWS_CASE(2, 0, 0) C2R_WINDOWS_CASE(2, 0, 1)
+    C2R_WINDOWS_CASE(2, 1, 0) C2R_WINDOWS_CASE(2, 1, 1)
+#undef C2R_WINDOWS_CASE
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* c2r_error_string(int code) {

@@ -51,6 +51,10 @@ class ChemistryResult(NamedTuple):
     # the kernel's int64 counters (chemistry_cuda.COUNTERS); None from
     # the plain version
     counters: Optional[torch.Tensor] = None
+    # the kernel's photon audit, (4,) [h0, h1, rec_rate, coll_rate] of
+    # the two photonstats.grid_counts calls of the solver's tail
+    # (chemistry_cuda.audit_reference); None from the plain version
+    audit: Optional[torch.Tensor] = None
 
 
 def global_chemistry(cfg: RunConfig, dt, ndens: torch.Tensor,

@@ -12,10 +12,14 @@ ops/chemistry.global_chemistry_reference.
 The kernel follows the plain version's torch ops cell by cell, so its
 outputs are bitwise those of the plain version on the card.  The
 isothermal rates are computed here once with the plain version's own
-ops and passed in.  Builds: float32 and float64 (the tensors' dtype),
-each with an isothermal and a heat instance and their compressed-storage
-forms; LAUNCHES (launches.LaunchCounts) counts launches by build key:
-"chemistry", "chemistry_heat", "chemistry_f64", "chemistry_f64_heat".
+ops and passed in.  The kernel also takes the solver tail's photon audit
+(its two ops/photonstats.grid_counts calls) in its output pass: the
+result's `audit`, whose plain version is audit_reference, and whose
+arithmetic per cell audit_terms writes out in torch.  Builds: float32
+and float64 (the tensors' dtype), each with an isothermal and a heat
+instance and their compressed-storage forms; LAUNCHES
+(launches.LaunchCounts) counts launches by build key: "chemistry",
+"chemistry_heat", "chemistry_f64", "chemistry_f64_heat".
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..config import RunConfig
 from .chemistry import ChemistryResult
 from .doric import recombination_rates
 from .launches import LaunchCounts
+from .photonstats import grid_counts
 from .sweep_cuda import _DTYPES, Build, _build_key, _check_cuda, _check_rc, \
     _entry, step_scalar
 from .tables import LOG10_E
@@ -43,14 +48,19 @@ COUNTERS = ("conv_flag", "max_passes", "passes", "substeps",
             "max_substeps")
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_NUM_SCALARS = 19
+# the audit's sums, in csrc/chemistry.cu's Audit order
+AUDIT = ("h0", "h1", "rec_rate", "coll_rate")
+
+_NUM_SCALARS = 23
 _SIGNATURES = {
     "chemistry": ("chemistry", "c2r_chemistry",
                   [_vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp, _i,
                    _vp, _vp, _vp, _vp, ctypes.POINTER(ctypes.c_double), _vp,
                    _vp, _ll,
-                   _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
-    # blocks of the cell launch: the size of its counters' partials
+                   _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                   _vp]),
+    # the partials' length per quantity: the cell launch's blocks and the
+    # reduce's first-stage chunks
     "chemistry_blocks": ("chemistry", "c2r_chemistry_blocks", [_ll]),
 }
 
@@ -82,6 +92,69 @@ def _operand(name, x, like: torch.Tensor):
     return x, 1, 0.0
 
 
+def audit_scalars(cfg: RunConfig, clumping) -> tuple:
+    """The isothermal audit's rates as grid_counts takes them, Python
+    floats: the recombination rate of a scalar clumping (clumping * BH00 *
+    (T / 1e4) ** ALBPOW; 0.0 for a clumping tensor), (T / 1e4) ** ALBPOW,
+    T and -TEMPH0 / T at T = cfg.initial_temperature."""
+    t = cfg.initial_temperature
+    pw = (t / 1e4) ** const.ALBPOW
+    brech = (0.0 if isinstance(clumping, torch.Tensor)
+             else clumping * const.BH00 * pw)
+    return brech, pw, t, -const.TEMPH0 / t
+
+
+def audit_reference(cfg: RunConfig, ndens: torch.Tensor,
+                    xh1_intermed: torch.Tensor, xh1_av: torch.Tensor,
+                    temper_av: Optional[torch.Tensor] = None,
+                    clumping: Union[float, torch.Tensor] = 1.0
+                    ) -> torch.Tensor:
+    """Plain version of the kernel's audit: the solver tail's two
+    grid_counts calls -> (4,) [h0, h1 of xh1_intermed; rec_rate,
+    coll_rate of xh1_av under temper_av, or the initial temperature when
+    it is None]."""
+    comp = cfg.compressed_xfrac
+    ca = grid_counts(cfg, ndens, xh1_intermed, temper_av, clumping,
+                     compressed=comp)
+    cr = grid_counts(cfg, ndens, xh1_av, temper_av, clumping,
+                     compressed=comp)
+    return torch.stack([ca.h0, ca.h1, cr.rec_rate, cr.coll_rate])
+
+
+def audit_terms(cfg: RunConfig, ndens: torch.Tensor,
+                xh1_intermed: torch.Tensor, xh1_av: torch.Tensor,
+                temper_av: Optional[torch.Tensor] = None,
+                clumping: Union[float, torch.Tensor] = 1.0
+                ) -> torch.Tensor:
+    """The kernel's audit terms of each cell, in torch: (4, *ndens.shape)
+    in ndens' dtype, [nd x0, nd x1 of xh1_intermed; (nd x1) ne brech,
+    (nd x0) ne acol of xh1_av], from the scalars and in the order of
+    operations the kernel takes (audit_scalars; the heat build's rates at
+    temper_av, as ops/doric.recombination_rates).  Their float64 sums are
+    the kernel's audit up to the order of the sum."""
+    from ..state import xh0_of, xh1_of
+
+    def split(x):
+        if cfg.compressed_xfrac:
+            return xh1_of(x), xh0_of(x)
+        return x, 1.0 - x
+
+    x1i, x0i = split(xh1_intermed)
+    x1a, x0a = split(xh1_av)
+    if temper_av is not None:
+        brech, acol = recombination_rates(temper_av, clumping)
+    else:
+        s_brech, pw, t, neg_t = audit_scalars(cfg, clumping)
+        brech = (clumping * const.BH00 * pw
+                 if isinstance(clumping, torch.Tensor) else s_brech)
+        full = dict(dtype=ndens.dtype, device=ndens.device)
+        acol = const.COLH0 * torch.sqrt(torch.full((), t, **full)) \
+            * torch.exp(torch.full((), neg_t, **full))
+    ne = ndens * (x1a + const.ABU_C)
+    return torch.stack([ndens * x0i, ndens * x1i, ndens * x1a * ne * brech,
+                        ndens * x0a * ne * acol])
+
+
 def global_chemistry_cuda(cfg: RunConfig, dt, ndens: torch.Tensor,
                           xh1_old: torch.Tensor, xh1_intermed: torch.Tensor,
                           xh1_av: torch.Tensor, phih: torch.Tensor,
@@ -92,12 +165,13 @@ def global_chemistry_cuda(cfg: RunConfig, dt, ndens: torch.Tensor,
                           photon_loss_rate: Union[float,
                                                   torch.Tensor] = 0.0,
                           max_subcycles: int = 10000) -> ChemistryResult:
-    """global_chemistry on CUDA tensors, one kernel launch (the
-    arguments are global_chemistry's).  dt and cosmo_cool_coeff are
-    Python numbers or one-element float64 tensors on the card, which the
-    kernel reads at launch (sweep_cuda.step_scalar); clumping and
-    photon_loss_rate a number, a 0-d tensor or a grid of ndens' shape.
-    The result's counters hold the kernel's COUNTERS."""
+    """global_chemistry on CUDA tensors, one kernel launch and its
+    reduce (the arguments are global_chemistry's).  dt and
+    cosmo_cool_coeff are Python numbers or one-element float64 tensors on
+    the card, which the kernel reads at launch (sweep_cuda.step_scalar);
+    clumping and photon_loss_rate a number, a 0-d tensor or a grid of
+    ndens' shape.  The result's counters hold the kernel's COUNTERS, its
+    audit the photon audit's AUDIT sums."""
     res = _chemistry(cfg, dt, ndens, xh1_old, xh1_intermed, xh1_av, phih,
                      phiheat, temper_current, temper_av, clumping, cool,
                      cosmo_cool_coeff, photon_loss_rate, max_subcycles)
@@ -109,9 +183,10 @@ def global_chemistry_cuda(cfg: RunConfig, dt, ndens: torch.Tensor,
 def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
                phih, phiheat, temper_current, temper_av, clumping, cool,
                cosmo_cool_coeff, photon_loss_rate, max_subcycles,
-               defines=()) -> ChemistryResult:
+               defines=(), audit=True) -> ChemistryResult:
     """Launch the kernel (the build of ndens' dtype, with the timing
-    `defines` added, none by default)."""
+    `defines` added, none by default), with the photon audit unless
+    audit is False (its result's audit then None)."""
     heat = not cfg.isothermal
     dtype, dev = ndens.dtype, ndens.device
     dt, dt_p = step_scalar("dt", dt, dev)
@@ -133,11 +208,11 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
             raise ValueError(f"{name} is on {t.device}, ndens on {dev}")
     loss, loss_stride, loss_scalar = _operand("photon_loss_rate",
                                               photon_loss_rate, ndens)
-    brech = acol = clump = None
-    brech_stride = clump_stride = 0
+    brech = acol = None
+    brech_stride = 0
     clump_bh = 0.0
+    clump, clump_stride, c = _operand("clumping", clumping, ndens)
     if heat:
-        clump, clump_stride, c = _operand("clumping", clumping, ndens)
         if clump is None:
             clump_bh = c * const.BH00     # the plain version's Python product
         cie = cool.cie_cool
@@ -159,7 +234,7 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
         const.ALBPOW, const.COLH0, const.TEMPH0, const.ABU_C, const.K_B,
         const.GAMMA1, LOG10_E, cool.mintemp if heat else 0.0,
         cool.dtemp if heat else 1.0, cfg.minitemp, cfg.relative_denergy,
-        coeff)
+        coeff, *audit_scalars(cfg, clumping))
     out_int = torch.empty_like(ndens)
     out_av = torch.empty_like(ndens)
     out_tint = torch.empty_like(ndens) if heat else None
@@ -173,8 +248,13 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
     lib, fn = _entry("chemistry", _SIGNATURES, defines)
     blocks = _entry("chemistry_blocks", _SIGNATURES, defines)[1]
     blocks.restype = _ll
-    partial = torch.empty(len(COUNTERS) * max(1, blocks(ndens.numel())),
-                          dtype=torch.int64, device=dev)
+    nblocks = max(1, blocks(ndens.numel()))
+    partial = torch.empty(len(COUNTERS) * nblocks, dtype=torch.int64,
+                          device=dev)
+    audit_out = (torch.zeros(len(AUDIT), dtype=dtype, device=dev) if audit
+                 else None)
+    apartial = (torch.empty(len(AUDIT) * nblocks, dtype=torch.float64,
+                            device=dev) if audit else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(ptr(ndens), ptr(xh1_old), ptr(xh1_intermed), ptr(xh1_av),
             ptr(phih), ptr(loss), loss_stride, ptr(brech), brech_stride,
@@ -183,8 +263,9 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
             coeff_p, ndens.numel(), cfg.max_chemistry_iterations,
             int(max_subcycles), int(heat), int(cfg.compressed_xfrac),
             ptr(out_int), ptr(out_av), ptr(out_tint), ptr(out_tav),
-            ptr(counters), ptr(partial), stream)
+            ptr(counters), ptr(partial), ptr(apartial), ptr(audit_out),
+            stream)
     _check_rc(lib, rc, "chemistry")
     return ChemistryResult(out_int, out_av, out_tint, out_tav,
                            counters[0].to(torch.int32),
-                           counters[1].to(torch.int32), counters)
+                           counters[1].to(torch.int32), counters, audit_out)

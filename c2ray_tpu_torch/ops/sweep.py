@@ -479,9 +479,10 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
                    nfx: Optional[torch.Tensor] = None):
     """Sweep one batch of (2r+1)^3 windows and scatter-add their rates
     into the padded accumulator, in place (the JAX windowed_batch on its
-    block-DMA path).  Gather (K4), march (K3) and scatter-add (K5) are
-    the kernels on a CUDA device; the rate pass is plain torch, batched
-    over the windows, on the window's own (p,p,p) mesh.  A non-isothermal
+    block-DMA path).  Gather (K4), march (K3), rate pass (K2w,
+    sweep_cuda.window_rates, on the window's own (p,p,p) mesh) and
+    scatter-add (K5) are the kernels on a CUDA device, their plain
+    versions on the CPU.  A non-isothermal
     cfg also scatter-adds the heating rates into heat_pad (a second K5
     call), which it requires.  With a padded grid LLS field lls_pad (the
     wrap_pad of the LLS cube) a second K4 call gathers its windows, which
@@ -491,7 +492,7 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
     pos: (B, 3) int32 grid cells in [0, n); nf, nfx: (B,) fluxes (zero
     entries pad a partial batch and add exactly zero).
     Returns (photon_loss_sum, lls_loss_sum, per_window_loss)."""
-    from .sweep_cuda import compute_columns_windows
+    from .sweep_cuda import compute_columns_windows, window_rates
     from .window_cuda import window_gather, window_scatter_add
 
     if not cfg.isothermal and heat_pad is None:
@@ -502,15 +503,13 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
     wins = window_gather(ndhi_pad, pos, r)
     lwins = window_gather(lls_pad, pos, r) if lls_pad is not None else None
     cdo = compute_columns_windows(cfgw, wins, sc, r, lls_wins=lwins)
-    res = _rate_pass(cfgw, tables, cdo, wins, nf[:, None, None, None], sc,
-                     lwins, r, nflux_xray=(nfx[:, None, None, None]
-                                           if nfx is not None else None))
+    res = window_rates(cfgw, tables, cdo, wins, nf, sc, r, lls_wins=lwins,
+                       nfx=nfx)
     del cdo
     window_scatter_add(acc_pad, res.phih, pos)
     if not cfg.isothermal:
         window_scatter_add(heat_pad, res.phiheat, pos)
-    return torch.sum(res.photon_loss), torch.sum(res.lls_loss), \
-        res.photon_loss
+    return res.loss_sum, res.lls_loss_sum, res.loss
 
 
 def _pad_batch(srcpos: torch.Tensor, nflux: torch.Tensor, b: int,

@@ -11,6 +11,10 @@ The port's twin of c2ray_tpu/ops/sweep_pallas.py:
                                                 rate deposition (with its
                                                 has_heat branch in the
                                                 non-isothermal build)
+  window_rates             (csrc/consume.cu) <- no Pallas kernel: the
+                                                vmapped _rate_pass of the
+                                                JAX windowed_batch, as the
+                                                deposition's window mode
 
 Every branch of the three Pallas kernels has its build: LLS off, a scalar
 LLS column (type 1) or a grid LLS cube (type 2, has_lls) in the marches
@@ -28,7 +32,8 @@ kernel launches each wrapper makes, by build (build_for's key): "march" and
 "window_march" the marches without a grid LLS cube, + "_lls" with one;
 "consume" the deposition's isothermal mixture build without a grid LLS
 cube or X-ray, + "_table" (table rates), "_lls" (grid LLS) or "_rmax"
-(the R_max barrier of type 3), "_xray" and "_heat" the others; every
+(the R_max barrier of type 3), "_xray" and "_heat" the others, and
+"window_rates" its window mode with the same suffixes; every
 float64 build has "_f64" after the kernel's name (and "_table"), as
 "march_f64_lls" or "consume_table_f64_heat".
 """
@@ -36,6 +41,7 @@ float64 build has "_f64" after the kernel's name (and "_table"), as
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
@@ -51,8 +57,11 @@ from .tables import RadTables, thin_limits, use_expsum
 _DTYPES = {torch.float32: ("", ()), torch.float64: ("_f64", ("C2R_F64",))}
 # the wrappers' kernels -> their csrc/ source
 _SOURCES = {"march": "march", "window_march": "march", "consume": "consume",
-            "window_gather": "window", "window_scatter": "window",
-            "chemistry": "chemistry"}
+            "window_rates": "consume", "window_gather": "window",
+            "window_scatter": "window", "chemistry": "chemistry"}
+# the kernels of csrc/consume.cu (K2's grid and window modes): their builds
+# follow the rate mode, the R_max barrier, X-ray and heat
+_RATE_KERNELS = ("consume", "window_rates")
 
 
 class Build(NamedTuple):
@@ -82,15 +91,16 @@ def _build_key(kernel: str, dtype, table=False, lls="", xray=False,
 def build_for(kernel: str, dtype, cfg: Optional[RunConfig] = None,
               grid_lls: bool = False, xray: bool = False) -> Build:
     """The build that runs `kernel` ("march", "window_march", "consume",
-    "window_gather", "window_scatter") on tensors of `dtype` for cfg's
-    options: grid_lls, a grid LLS cube given (the marches and the
-    deposition); xray, X-ray fluxes given (taken where
-    cfg.sed.use_xray_sed).  The deposition takes cfg's rate mode
-    (use_expsum), R_max barrier (LLS type 3) and heat (not isothermal)."""
+    "window_rates", "window_gather", "window_scatter") on tensors of
+    `dtype` for cfg's options: grid_lls, a grid LLS cube given (the
+    marches and the deposition's two modes); xray, X-ray fluxes given
+    (taken where cfg.sed.use_xray_sed).  The deposition's two modes take
+    cfg's rate mode (use_expsum), R_max barrier (LLS type 3) and heat (not
+    isothermal)."""
     if kernel in ("window_gather", "window_scatter"):
         return _build_key(kernel, dtype)
     lls = "_lls" if grid_lls and _lls_mode(cfg, True) == 2 else ""
-    if kernel != "consume":
+    if kernel not in _RATE_KERNELS:
         return _build_key(kernel, dtype, lls=lls)
     if not lls and _rmax_on(cfg):
         lls = "_rmax"
@@ -102,8 +112,8 @@ def build_for(kernel: str, dtype, cfg: Optional[RunConfig] = None,
 LAUNCHES = LaunchCounts(
     [_build_key(k, d, lls=g).key for k in ("march", "window_march")
      for d in _DTYPES for g in ("", "_lls")]
-    + [_build_key("consume", d, t, g, x, h).key for d in _DTYPES
-       for t in (False, True) for g in ("", "_lls", "_rmax")
+    + [_build_key(k, d, t, g, x, h).key for k in _RATE_KERNELS
+       for d in _DTYPES for t in (False, True) for g in ("", "_lls", "_rmax")
        for x in (False, True) for h in (False, True)])
 
 # the most sources one launch takes (CUDA's grid z extent)
@@ -130,6 +140,15 @@ _SIGNATURES = {
     # blocks of the consume kernel's cell launch at mesh n: the size of
     # its loss partials, from the kernel's own launch shape
     "consume_nblocks": ("consume", "c2r_consume_nblocks", [_i]),
+    "window_rates": ("consume", "c2r_consume_windows",
+                     [_vp, _vp, _vp, _vp, _vp,
+                      ctypes.POINTER(ctypes.c_void_p), _i, _i, _i, _i, _i,
+                      _i, _d, _d, _d, _d, ctypes.POINTER(ctypes.c_void_p),
+                      _i, _i, _i, _d, _d, _d, _d, _d, _vp, _vp, _vp, _vp,
+                      _vp]),
+    # blocks of one window's cells in the window launch at extent p
+    "window_rates_nblocks": ("consume", "c2r_consume_windows_nblocks",
+                             [_i]),
 }
 
 
@@ -389,6 +408,53 @@ def consume_rates_reference(cfg: RunConfig, tables: RadTables,
     return phih, phiheat, torch.stack(loss), torch.stack(lls)
 
 
+def _rate_args(cfg: RunConfig, tables: RadTables, sc: SweepScalars, dtype,
+               dev: torch.device, xray: bool):
+    """The arguments K2's two modes share, checked: the rate tables the
+    build reads (8 pointers, in csrc/consume.cu's order) and their term
+    counts K, Kx; the per-step scalars dr, rate_scale, lls_coldens and
+    rmax2 as (values, 4 pointers) (the R_max barrier +inf, which lets
+    every ray through, unless LLS type 3); the table scalars."""
+    table = not use_expsum(cfg, dtype)
+    heat = not cfg.isothermal
+    if table:
+        names = ["photo_thick", "photo_thin"] + (
+            ["heat_thick", "heat_thin"] if heat else [None, None])
+        names += ([f"xray_{x}" if x else None for x in names] if xray
+                  else [None] * 4)
+        k = kx = cfg.num_tau + 1
+    else:
+        names = ["exp_a", "exp_w", "heat_exp_w" if heat else None]
+        names += ([f"xray_{x}" if x else None for x in names] if xray
+                  else [None] * 3)
+        names += [None, None]
+        k = tables.exp_a.shape[0]
+        kx = tables.xray_exp_a.shape[0] if xray else 0
+    tabs = [getattr(tables, x) if x else None for x in names]
+    for name, t in zip(names, tabs):
+        if t is not None:
+            _check_cuda(f"tables.{name}", t, dtype,
+                        (kx if name.startswith("xray") else k,))
+            if t.device != dev:
+                raise ValueError(f"tables.{name} is on {t.device}, the "
+                                 f"columns on {dev}")
+    step = [step_scalar(f"sc.{f}", getattr(sc, f), dev)
+            for f in ("dr", "rate_scale", "lls_coldens", "rmax2_cells")]
+    if not _rmax_on(cfg):
+        step[3] = (float("inf"), None)
+    photo_limit, heat_limit = thin_limits(cfg, dtype)
+    dlogtau = (cfg.maxlogtau - cfg.minlogtau) / cfg.num_tau
+    return SimpleNamespace(
+        tables=(ctypes.c_void_p * 8)(*[_ptr(t) for t in tabs]), k=k, kx=kx,
+        values=[v for v, _ in step],
+        pointers=(ctypes.c_void_p * 4)(*[q for _, q in step]),
+        table_scalars=(cfg.minlogtau, dlogtau, photo_limit, heat_limit))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
 def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
                   ndhi: torch.Tensor, srcpos_b: torch.Tensor,
                   nflux_b: torch.Tensor, sc: SweepScalars, max_shell: int,
@@ -411,7 +477,6 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     dtype = cdo_b.dtype
     xray = cfg.sed.use_xray_sed and nfx_b is not None
     build = build_for("consume", dtype, cfg, lls_grid is not None, xray)
-    table = not use_expsum(cfg, dtype)
     heat = not cfg.isothermal
     mode = _lls_mode(cfg, lls_grid)
     b, n = cdo_b.shape[0], cdo_b.shape[1]
@@ -426,26 +491,6 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     if xray:
         _check_cuda("nfx_b", nfx_b, dtype, (b,))
         checks.append(("nfx_b", nfx_b))
-    # the rate tables this build reads, in csrc/consume.cu's order
-    if table:
-        names = ["photo_thick", "photo_thin"] + (
-            ["heat_thick", "heat_thin"] if heat else [None, None])
-        names += ([f"xray_{x}" if x else None for x in names] if xray
-                  else [None] * 4)
-        k = kx = cfg.num_tau + 1
-    else:
-        names = ["exp_a", "exp_w", "heat_exp_w" if heat else None]
-        names += ([f"xray_{x}" if x else None for x in names] if xray
-                  else [None] * 3)
-        names += [None, None]
-        k = tables.exp_a.shape[0]
-        kx = tables.xray_exp_a.shape[0] if xray else 0
-    tabs = [getattr(tables, x) if x else None for x in names]
-    for name, t in zip(names, tabs):
-        if t is not None:
-            _check_cuda(f"tables.{name}", t, dtype,
-                        (kx if name.startswith("xray") else k,))
-            checks.append((f"tables.{name}", t))
     dev = cdo_b.device
     for name, t in checks:
         if t.device != dev:
@@ -453,6 +498,7 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
     if not 1 <= b <= MAX_BATCH:
         raise ValueError(f"batch of {b} sources; the consume kernel takes "
                          f"1..{MAX_BATCH}")
+    ra = _rate_args(cfg, tables, sc, dtype, dev, xray)
     lib, fn = _entry("consume", defines=build.defines)
     nblocks = _entry("consume_nblocks", defines=build.defines)[1](n)
     phih = torch.empty((n, n, n), dtype=dtype, device=dev)
@@ -460,30 +506,110 @@ def consume_rates(cfg: RunConfig, tables: RadTables, cdo_b: torch.Tensor,
                if heat else None)
     partial = torch.empty((2, b, nblocks), dtype=dtype, device=dev)
     loss = torch.empty((2, b), dtype=dtype, device=dev)
-    # the per-step scalars (values, pointers); the R_max barrier: +inf
-    # lets every ray through (no type 3)
-    step = [step_scalar(f"sc.{f}", getattr(sc, f), dev)
-            for f in ("dr", "rate_scale", "lls_coldens", "rmax2_cells")]
-    if not _rmax_on(cfg):
-        step[3] = (float("inf"), None)
-    values = [v for v, _ in step]
-    pointers = (ctypes.c_void_p * 4)(*[p for _, p in step])
-    photo_limit, heat_limit = thin_limits(cfg, dtype)
-    dlogtau = (cfg.maxlogtau - cfg.minlogtau) / cfg.num_tau
-
-    def ptr(t, use=True):
-        return t.data_ptr() if use else None
-
-    table_ptrs = (ctypes.c_void_p * 8)(*[ptr(t, t is not None)
-                                          for t in tabs])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(cdo_b.data_ptr(), ndhi.data_ptr(), ptr(lls_grid, mode == 2),
-            srcpos_b.data_ptr(), nflux_b.data_ptr(), ptr(nfx_b, xray),
-            table_ptrs, k, kx, cfg.num_tau, b, n, max_shell, *values,
-            pointers, mode, int(heat), int(xray), cfg.max_coldensh,
-            cfg.minlogtau, dlogtau, photo_limit, heat_limit,
-            phih.data_ptr(), ptr(phiheat, heat), partial.data_ptr(),
-            loss.data_ptr(), stream)
+    rc = fn(cdo_b.data_ptr(), ndhi.data_ptr(),
+            _ptr(lls_grid if mode == 2 else None), srcpos_b.data_ptr(),
+            nflux_b.data_ptr(), _ptr(nfx_b if xray else None), ra.tables,
+            ra.k, ra.kx, cfg.num_tau, b, n, max_shell, *ra.values,
+            ra.pointers, mode, int(heat), int(xray), cfg.max_coldensh,
+            *ra.table_scalars, phih.data_ptr(), _ptr(phiheat),
+            partial.data_ptr(), loss.data_ptr(), stream)
     _check_rc(lib, rc, "consume")
     LAUNCHES.add(build.key, 2, dev)
     return phih, phiheat, loss[0], loss[1]
+
+
+# ---------------------------------------------------------------------------
+# K2w: the rate pass on source-centred windows (consume.cu's window mode)
+# ---------------------------------------------------------------------------
+
+class WindowRates(NamedTuple):
+    """The rate pass of a batch of windows: the (B,p,p,p) per-atom rates
+    and (non-isothermal) heating rates (None when isothermal), the (B,)
+    boundary losses and LLS tallies, and their sums over the batch."""
+
+    phih: torch.Tensor
+    phiheat: Optional[torch.Tensor]
+    loss: torch.Tensor
+    lls_loss: torch.Tensor
+    loss_sum: torch.Tensor
+    lls_loss_sum: torch.Tensor
+
+
+def window_rates_reference(cfg: RunConfig, tables: RadTables,
+                           cdo: torch.Tensor, wins: torch.Tensor,
+                           nf: torch.Tensor, sc: SweepScalars,
+                           max_shell: int,
+                           lls_wins: Optional[torch.Tensor] = None,
+                           nfx: Optional[torch.Tensor] = None
+                           ) -> WindowRates:
+    """Plain version of window_rates: _rate_pass batched over the windows
+    (the JAX windowed_batch vmaps it), the fluxes broadcast as
+    (B,1,1,1), the losses summed with torch.sum."""
+    res = _rate_pass(cfg, tables, cdo, wins, nf[:, None, None, None], sc,
+                     lls_wins, max_shell,
+                     nflux_xray=(nfx[:, None, None, None]
+                                 if nfx is not None else None))
+    return WindowRates(res.phih, None if cfg.isothermal else res.phiheat,
+                       res.photon_loss, res.lls_loss,
+                       torch.sum(res.photon_loss), torch.sum(res.lls_loss))
+
+
+def window_rates(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
+                 wins: torch.Tensor, nf: torch.Tensor, sc: SweepScalars,
+                 max_shell: int, lls_wins: Optional[torch.Tensor] = None,
+                 nfx: Optional[torch.Tensor] = None) -> WindowRates:
+    """The rate pass of B source-centred windows (K2w): the window march's
+    columns cdo (B,p,p,p) on the gathered neutral-density windows wins
+    (B,p,p,p), the fluxes nf (B,) -> WindowRates.  cfg is the window's
+    (mesh (p,p,p), as windowed_batch makes it); lls_wins: the grid LLS
+    columns' windows (type 2), or None; nfx: (B,) X-ray fluxes, used when
+    cfg.sed.use_xray_sed, or None.  LLS type 3 stops each ray at
+    sc.rmax2_cells.  The build is consume's for cdo's dtype and cfg's
+    options (build_for("window_rates", ...))."""
+    if cdo.device.type == "cpu":
+        return window_rates_reference(cfg, tables, cdo, wins, nf, sc,
+                                      max_shell, lls_wins, nfx)
+    _slice_options(cfg)
+    dtype, dev = cdo.dtype, cdo.device
+    xray = cfg.sed.use_xray_sed and nfx is not None
+    build = build_for("window_rates", dtype, cfg, lls_wins is not None, xray)
+    heat = not cfg.isothermal
+    mode = _lls_mode(cfg, lls_wins)
+    b, p = cdo.shape[0], cdo.shape[-1]
+    shape = (b, p, p, p)
+    _check_cuda("cdo", cdo, dtype, shape)
+    _check_cuda("wins", wins, dtype, shape)
+    _check_cuda("nf", nf, dtype, (b,))
+    checks = [("wins", wins), ("nf", nf)]
+    if mode == 2:
+        _check_cuda("lls_wins", lls_wins, dtype, shape)
+        checks.append(("lls_wins", lls_wins))
+    if xray:
+        _check_cuda("nfx", nfx, dtype, (b,))
+        checks.append(("nfx", nfx))
+    for name, t in checks:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, cdo on {dev}")
+    if not 1 <= b <= MAX_WINDOWS:
+        raise ValueError(f"batch of {b} windows; the window rate pass "
+                         f"takes 1..{MAX_WINDOWS}")
+    ra = _rate_args(cfg, tables, sc, dtype, dev, xray)
+    lib, fn = _entry("window_rates", defines=build.defines)
+    nbx = _entry("window_rates_nblocks", defines=build.defines)[1](p)
+    phih = torch.empty(shape, dtype=dtype, device=dev)
+    phiheat = torch.empty(shape, dtype=dtype, device=dev) if heat else None
+    partial = torch.empty((2, b, nbx), dtype=dtype, device=dev)
+    loss = torch.empty(2 * b + 2, dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(cdo.data_ptr(), wins.data_ptr(),
+            _ptr(lls_wins if mode == 2 else None), nf.data_ptr(),
+            _ptr(nfx if xray else None), ra.tables, ra.k, ra.kx,
+            cfg.num_tau, b, p, max_shell, *ra.values, ra.pointers, mode,
+            int(heat), int(xray), cfg.max_coldensh, *ra.table_scalars,
+            phih.data_ptr(), _ptr(phiheat), partial.data_ptr(),
+            loss.data_ptr(), stream)
+    _check_rc(lib, rc, "window rates")
+    LAUNCHES.add(build.key, 1, dev)
+    return WindowRates(phih, phiheat, loss[:b], loss[b:2 * b], loss[2 * b],
+                       loss[2 * b + 1])

@@ -179,6 +179,10 @@ def sharded_chemistry(grid, gather: bool):
         conv = grid.sum(res.conv_flag, "dom")
         nit = grid.max(res.n_iterations, "dom")
         res = res._replace(conv_flag=conv, n_iterations=nit)
+        if gather and m != n:
+            # the kernel's audit covers the slab, the gathered state the
+            # whole grid: the tail audits that with grid_counts
+            res = res._replace(audit=None)
         if gather and grid.n_dom > 1:
             fields = [f for f in (res.xh1_intermed, res.xh1_av,
                                   res.temper_intermed, res.temper_av)

@@ -395,7 +395,9 @@ class Evolve3D:
         counts + convergence sum, packed with the per-source losses into
         one vector for a single host copy.  Non-isothermally the
         chemistry also integrates the temperature from t_cur under
-        phiheat, and the audit takes its time-averaged temperature.
+        phiheat, and the audit takes its time-averaged temperature.  The
+        audit is the chemistry kernel's own (its result's audit) where
+        the chemistry ran as the kernel, else two grid_counts calls.
         -> (xh_int, xh_av, t_int, t_av, packed); the temperatures are None
         when isothermal."""
         cfg = self.cfg
@@ -407,17 +409,22 @@ class Evolve3D:
         sum1 = torch.sum(self._dense_x1(chem.xh1_intermed))
         dl = sum1.dtype
         sums = [sum1]
-        if with_stats:
+        if with_stats and chem.audit is not None:
+            # the chemistry kernel's audit, taken in its output pass
+            sums = torch.cat([sum1.view(1), chem.audit.to(dl)])
+        elif with_stats:
             comp = cfg.compressed_xfrac
             ca = grid_counts(cfg, ndens, chem.xh1_intermed, chem.temper_av,
                              clump, compressed=comp)
             cr = grid_counts(cfg, ndens, chem.xh1_av, chem.temper_av, clump,
                              compressed=comp)
             sums += [ca.h0, ca.h1, cr.rec_rate, cr.coll_rate]
+        if isinstance(sums, list):
+            sums = torch.stack([torch.as_tensor(v, dtype=dl,
+                                                device=sum1.device)
+                                for v in sums])
         # one sum over the ranks for all of them where the state is a slab
-        sums = self._gsum(torch.stack([torch.as_tensor(v, dtype=dl,
-                                                       device=sum1.device)
-                                       for v in sums]))
+        sums = self._gsum(sums)
         scalars = torch.cat([torch.stack([chem.conv_flag.to(dl), sums[0],
                                           ploss.to(dl), llsl.to(dl)]),
                              sums[1:]])
