@@ -27,7 +27,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("march", "consume", "window", "chemistry", "loop_graph")
+KERNELS = ("march", "consume", "window", "window_sweep", "chemistry",
+           "loop_graph")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -20,6 +20,12 @@ __host__ __device__ constexpr real rl(double x) {
   return static_cast<real>(x);
 }
 
+// The constants the march and the rate pass share, in the build's type.
+constexpr real kSigma = rl(6.30e-18);             // SIGMA_HI_AT_ION_FREQ
+constexpr real kFourPi = rl(12.566370614359172);
+constexpr real kSqrt2 = rl(1.4142135623730951);
+constexpr real kSqrt3 = rl(1.7320508075688772);   // the longest path, cells
+
 __device__ __forceinline__ float r_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double r_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float r_exp(float x) { return expf(x); }

@@ -479,10 +479,13 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
                    nfx: Optional[torch.Tensor] = None):
     """Sweep one batch of (2r+1)^3 windows and scatter-add their rates
     into the padded accumulator, in place (the JAX windowed_batch on its
-    block-DMA path).  Gather (K4), march (K3), rate pass (K2w,
-    sweep_cuda.window_rates, on the window's own (p,p,p) mesh) and
-    scatter-add (K5) are the kernels on a CUDA device, their plain
-    versions on the CPU.  A non-isothermal
+    block-DMA path).  Gather (K4), the window sweep (sweep_cuda.
+    window_sweep: the march and the rate pass on the window's own (p,p,p)
+    mesh in one launch) and scatter-add (K5) are the kernels on a CUDA
+    device, their plain versions on the CPU; where the window sweep does
+    not fit (sweep_cuda.window_sweep_fits: larger windows, float64 at r =
+    64) the march (K3) and the rate pass (K2w, sweep_cuda.window_rates)
+    run one after the other, with the same phih bits.  A non-isothermal
     cfg also scatter-adds the heating rates into heat_pad (a second K5
     call), which it requires.  With a padded grid LLS field lls_pad (the
     wrap_pad of the LLS cube) a second K4 call gathers its windows, which
@@ -492,7 +495,8 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
     pos: (B, 3) int32 grid cells in [0, n); nf, nfx: (B,) fluxes (zero
     entries pad a partial batch and add exactly zero).
     Returns (photon_loss_sum, lls_loss_sum, per_window_loss)."""
-    from .sweep_cuda import compute_columns_windows, window_rates
+    from .sweep_cuda import (compute_columns_windows, window_rates,
+                             window_sweep, window_sweep_fits)
     from .window_cuda import window_gather, window_scatter_add
 
     if not cfg.isothermal and heat_pad is None:
@@ -502,10 +506,14 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: torch.Tensor,
     cfgw = cfg.replace(mesh=(p, p, p))
     wins = window_gather(ndhi_pad, pos, r)
     lwins = window_gather(lls_pad, pos, r) if lls_pad is not None else None
-    cdo = compute_columns_windows(cfgw, wins, sc, r, lls_wins=lwins)
-    res = window_rates(cfgw, tables, cdo, wins, nf, sc, r, lls_wins=lwins,
-                       nfx=nfx)
-    del cdo
+    if window_sweep_fits(cfgw, tables, wins, lwins, nfx):
+        res = window_sweep(cfgw, tables, wins, nf, sc, r, lls_wins=lwins,
+                           nfx=nfx)
+    else:
+        cdo = compute_columns_windows(cfgw, wins, sc, r, lls_wins=lwins)
+        res = window_rates(cfgw, tables, cdo, wins, nf, sc, r,
+                           lls_wins=lwins, nfx=nfx)
+        del cdo
     window_scatter_add(acc_pad, res.phih, pos)
     if not cfg.isothermal:
         window_scatter_add(heat_pad, res.phiheat, pos)

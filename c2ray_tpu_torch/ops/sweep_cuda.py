@@ -15,6 +15,12 @@ The port's twin of c2ray_tpu/ops/sweep_pallas.py:
                                                 vmapped _rate_pass of the
                                                 JAX windowed_batch, as the
                                                 deposition's window mode
+  window_sweep        (csrc/window_sweep.cu) <- _kernel and then that
+                                                vmapped _rate_pass, fused:
+                                                the window march with the
+                                                rate pass as its per-cell
+                                                epilogue, where it fits a
+                                                block (window_sweep_fits)
 
 Every branch of the three Pallas kernels has its build: LLS off, a scalar
 LLS column (type 1) or a grid LLS cube (type 2, has_lls) in the marches
@@ -33,7 +39,8 @@ kernel launches each wrapper makes, by build (build_for's key): "march" and
 "consume" the deposition's isothermal mixture build without a grid LLS
 cube or X-ray, + "_table" (table rates), "_lls" (grid LLS) or "_rmax"
 (the R_max barrier of type 3), "_xray" and "_heat" the others, and
-"window_rates" its window mode with the same suffixes; every
+"window_rates" its window mode and "window_sweep" the fused window
+sweep with the same suffixes; every
 float64 build has "_f64" after the kernel's name (and "_table"), as
 "march_f64_lls" or "consume_table_f64_heat".
 """
@@ -57,11 +64,13 @@ from .tables import RadTables, thin_limits, use_expsum
 _DTYPES = {torch.float32: ("", ()), torch.float64: ("_f64", ("C2R_F64",))}
 # the wrappers' kernels -> their csrc/ source
 _SOURCES = {"march": "march", "window_march": "march", "consume": "consume",
-            "window_rates": "consume", "window_gather": "window",
+            "window_rates": "consume", "window_sweep": "window_sweep",
+            "window_gather": "window",
             "window_scatter": "window", "chemistry": "chemistry"}
-# the kernels of csrc/consume.cu (K2's grid and window modes): their builds
-# follow the rate mode, the R_max barrier, X-ray and heat
-_RATE_KERNELS = ("consume", "window_rates")
+# the kernels that evaluate the rate pass (K2's grid and window modes, the
+# fused window sweep): their builds follow the rate mode, the R_max
+# barrier, X-ray and heat
+_RATE_KERNELS = ("consume", "window_rates", "window_sweep")
 
 
 class Build(NamedTuple):
@@ -91,12 +100,12 @@ def _build_key(kernel: str, dtype, table=False, lls="", xray=False,
 def build_for(kernel: str, dtype, cfg: Optional[RunConfig] = None,
               grid_lls: bool = False, xray: bool = False) -> Build:
     """The build that runs `kernel` ("march", "window_march", "consume",
-    "window_rates", "window_gather", "window_scatter") on tensors of
-    `dtype` for cfg's options: grid_lls, a grid LLS cube given (the
-    marches and the deposition's two modes); xray, X-ray fluxes given
-    (taken where cfg.sed.use_xray_sed).  The deposition's two modes take
-    cfg's rate mode (use_expsum), R_max barrier (LLS type 3) and heat (not
-    isothermal)."""
+    "window_rates", "window_sweep", "window_gather", "window_scatter") on
+    tensors of `dtype` for cfg's options: grid_lls, a grid LLS cube given
+    (the marches, the deposition's two modes and the window sweep); xray,
+    X-ray fluxes given (taken where cfg.sed.use_xray_sed).  The kernels of
+    the rate pass take cfg's rate mode (use_expsum), R_max barrier (LLS
+    type 3) and heat (not isothermal)."""
     if kernel in ("window_gather", "window_scatter"):
         return _build_key(kernel, dtype)
     lls = "_lls" if grid_lls and _lls_mode(cfg, True) == 2 else ""
@@ -149,6 +158,15 @@ _SIGNATURES = {
     # blocks of one window's cells in the window launch at extent p
     "window_rates_nblocks": ("consume", "c2r_consume_windows_nblocks",
                              [_i]),
+    "window_sweep": ("window_sweep", "c2r_window_sweep",
+                     [_vp, _vp, _vp, _vp, ctypes.POINTER(ctypes.c_void_p),
+                      _i, _i, _i, _i, _i, _i, _d, _d, _d, _d,
+                      ctypes.POINTER(ctypes.c_void_p), _i, _i, _i, _d, _d,
+                      _d, _d, _d, _vp, _vp, _vp, _vp]),
+    # 1 if the window sweep runs at extent p with these terms, heat and
+    # X-ray: the kernel's own fit rule
+    "window_sweep_fits": ("window_sweep", "c2r_window_sweep_fits",
+                          [_i, _i, _i, _i, _i]),
 }
 
 
@@ -422,14 +440,12 @@ def _rate_args(cfg: RunConfig, tables: RadTables, sc: SweepScalars, dtype,
             ["heat_thick", "heat_thin"] if heat else [None, None])
         names += ([f"xray_{x}" if x else None for x in names] if xray
                   else [None] * 4)
-        k = kx = cfg.num_tau + 1
     else:
         names = ["exp_a", "exp_w", "heat_exp_w" if heat else None]
         names += ([f"xray_{x}" if x else None for x in names] if xray
                   else [None] * 3)
         names += [None, None]
-        k = tables.exp_a.shape[0]
-        kx = tables.xray_exp_a.shape[0] if xray else 0
+    k, kx = _term_counts(cfg, tables, dtype, xray)
     tabs = [getattr(tables, x) if x else None for x in names]
     for name, t in zip(names, tabs):
         if t is not None:
@@ -449,6 +465,15 @@ def _rate_args(cfg: RunConfig, tables: RadTables, sc: SweepScalars, dtype,
         values=[v for v, _ in step],
         pointers=(ctypes.c_void_p * 4)(*[q for _, q in step]),
         table_scalars=(cfg.minlogtau, dlogtau, photo_limit, heat_limit))
+
+
+def _term_counts(cfg: RunConfig, tables: RadTables, dtype, xray: bool):
+    """Entries the rate kernels read per table: the mixture's K and Kx
+    terms, or num_tau + 1 in a table build."""
+    if not use_expsum(cfg, dtype):
+        return cfg.num_tau + 1, cfg.num_tau + 1
+    return (tables.exp_a.shape[0],
+            tables.xray_exp_a.shape[0] if xray else 0)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -610,6 +635,101 @@ def window_rates(cfg: RunConfig, tables: RadTables, cdo: torch.Tensor,
             phih.data_ptr(), _ptr(phiheat), partial.data_ptr(),
             loss.data_ptr(), stream)
     _check_rc(lib, rc, "window rates")
+    LAUNCHES.add(build.key, 1, dev)
+    return WindowRates(phih, phiheat, loss[:b], loss[b:2 * b], loss[2 * b],
+                       loss[2 * b + 1])
+
+
+# ---------------------------------------------------------------------------
+# The fused window sweep: K3's cluster form with K2w as its epilogue
+# ---------------------------------------------------------------------------
+
+def window_sweep_reference(cfg: RunConfig, tables: RadTables,
+                           wins: torch.Tensor, nf: torch.Tensor,
+                           sc: SweepScalars, max_shell: int,
+                           lls_wins: Optional[torch.Tensor] = None,
+                           nfx: Optional[torch.Tensor] = None
+                           ) -> WindowRates:
+    """Plain version of window_sweep: window_rates_reference on the plain
+    window march's columns."""
+    cdo = compute_columns_windows_reference(cfg, wins, sc, max_shell,
+                                            lls_wins)
+    return window_rates_reference(cfg, tables, cdo, wins, nf, sc, max_shell,
+                                  lls_wins, nfx)
+
+
+def window_sweep_fits(cfg: RunConfig, tables: RadTables, wins: torch.Tensor,
+                      lls_wins: Optional[torch.Tensor] = None,
+                      nfx: Optional[torch.Tensor] = None) -> bool:
+    """Whether window_sweep takes these windows (its arguments' cfg,
+    tables, wins, lls_wins and nfx): on the card the kernel's own fit rule
+    for the build (its two planes, staged terms and reduction slots in one
+    block's shared memory); the plain version on the CPU takes any."""
+    if wins.device.type == "cpu":
+        return True
+    xray = cfg.sed.use_xray_sed and nfx is not None
+    build = build_for("window_sweep", wins.dtype, cfg, lls_wins is not None,
+                      xray)
+    k, kx = _term_counts(cfg, tables, wins.dtype, xray)
+    fits = _entry("window_sweep_fits", defines=build.defines)[1]
+    return bool(fits(wins.shape[-1], k, kx, int(not cfg.isothermal),
+                     int(xray)))
+
+
+def window_sweep(cfg: RunConfig, tables: RadTables, wins: torch.Tensor,
+                 nf: torch.Tensor, sc: SweepScalars, max_shell: int,
+                 lls_wins: Optional[torch.Tensor] = None,
+                 nfx: Optional[torch.Tensor] = None) -> WindowRates:
+    """The window march and the rate pass of B source-centred windows in
+    one launch (csrc/window_sweep.cu): the gathered neutral-density
+    windows wins (B,p,p,p) and their fluxes nf (B,) -> WindowRates, what
+    window_rates gives on compute_columns_windows' columns, the columns
+    kept on chip.  cfg is the window's (mesh (p,p,p), as windowed_batch
+    makes it); lls_wins: the grid LLS columns' windows (type 2), or None;
+    nfx: (B,) X-ray fluxes, used when cfg.sed.use_xray_sed, or None.  On
+    the card the windows must fit the kernel (window_sweep_fits), else it
+    raises; the build is build_for("window_sweep", ...)."""
+    if wins.device.type == "cpu":
+        return window_sweep_reference(cfg, tables, wins, nf, sc, max_shell,
+                                      lls_wins, nfx)
+    _slice_options(cfg)
+    dtype, dev = wins.dtype, wins.device
+    xray = cfg.sed.use_xray_sed and nfx is not None
+    build = build_for("window_sweep", dtype, cfg, lls_wins is not None, xray)
+    heat = not cfg.isothermal
+    mode = _lls_mode(cfg, lls_wins)
+    b, p = wins.shape[0], wins.shape[-1]
+    shape = (b, p, p, p)
+    _check_cuda("wins", wins, dtype, shape)
+    _check_cuda("nf", nf, dtype, (b,))
+    checks = [("nf", nf)]
+    if mode == 2:
+        _check_cuda("lls_wins", lls_wins, dtype, shape)
+        checks.append(("lls_wins", lls_wins))
+    if xray:
+        _check_cuda("nfx", nfx, dtype, (b,))
+        checks.append(("nfx", nfx))
+    for name, t in checks:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, wins on {dev}")
+    if not 1 <= b <= MAX_WINDOWS:
+        raise ValueError(f"batch of {b} windows; the window sweep takes "
+                         f"1..{MAX_WINDOWS}")
+    ra = _rate_args(cfg, tables, sc, dtype, dev, xray)
+    lib, fn = _entry("window_sweep", defines=build.defines)
+    # cells beyond a capped radius are never written and must read zero
+    make = torch.zeros if _shells(max_shell, p) < p // 2 else torch.empty
+    phih = make(shape, dtype=dtype, device=dev)
+    phiheat = make(shape, dtype=dtype, device=dev) if heat else None
+    loss = torch.empty(2 * b + 2, dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(wins.data_ptr(), _ptr(lls_wins if mode == 2 else None),
+            nf.data_ptr(), _ptr(nfx if xray else None), ra.tables, ra.k,
+            ra.kx, cfg.num_tau, b, p, max_shell, *ra.values, ra.pointers,
+            mode, int(heat), int(xray), cfg.max_coldensh, *ra.table_scalars,
+            phih.data_ptr(), _ptr(phiheat), loss.data_ptr(), stream)
+    _check_rc(lib, rc, f"window sweep (p = {p}; window_sweep_fits decides "
+                       "where it runs)")
     LAUNCHES.add(build.key, 1, dev)
     return WindowRates(phih, phiheat, loss[:b], loss[b:2 * b], loss[2 * b],
                        loss[2 * b + 1])
