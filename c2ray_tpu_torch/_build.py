@@ -32,6 +32,12 @@ KERNELS = ("march", "consume", "window", "window_sweep", "chemistry",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# Sources built with --fmad=true: their own products are never fused
+# (real.cuh's r_mul), so only the math library's code is, as in the
+# PyTorch builds of the elementwise kernels their plain versions call (the
+# float64 pow differs in the last place on some arguments under
+# --fmad=false).
+FMAD_KERNELS = ("chemistry",)
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _loaded: dict = {}
@@ -74,8 +80,14 @@ def _spec(spec) -> tuple:
 
 
 def _flags(name: str, defines=()) -> tuple:
-    return ((NVCC_FLAGS if _is_cuda(name) else CXX_FLAGS)
-            + tuple(f"-D{d}" for d in defines))
+    if not _is_cuda(name):
+        base = CXX_FLAGS
+    elif name in FMAD_KERNELS:
+        base = tuple("--fmad=true" if f == "--fmad=false" else f
+                     for f in NVCC_FLAGS)
+    else:
+        base = NVCC_FLAGS
+    return base + tuple(f"-D{d}" for d in defines)
 
 
 def library_path(name: str, defines=()) -> Path:

@@ -98,6 +98,23 @@ int c2r_graph_nodes(void* graph, unsigned long long* count) {
   return (int)err;
 }
 
+// The kernel nodes of a graph (a launch of a kernel each).
+int c2r_graph_kernel_nodes(void* graph, unsigned long long* count) {
+  *count = 0;
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  err = cudaGraphGetNodes((cudaGraph_t)graph, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err == cudaSuccess && type == cudaGraphNodeTypeKernel) ++*count;
+  }
+  delete[] nodes;
+  return (int)err;
+}
+
 int c2r_while_graph_destroy(void* graph, void* exec) {
   cudaError_t err = cudaSuccess;
   if (exec) err = cudaGraphExecDestroy((cudaGraphExec_t)exec);

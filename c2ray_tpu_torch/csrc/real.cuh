@@ -26,6 +26,15 @@ constexpr real kFourPi = rl(12.566370614359172);
 constexpr real kSqrt2 = rl(1.4142135623730951);
 constexpr real kSqrt3 = rl(1.7320508075688772);   // the longest path, cells
 
+// A product that is never fused with an add into an FMA, whatever --fmad
+// says (a source built with --fmad=true contracts only the math library's
+// own code, as the PyTorch builds of its elementwise kernels do).
+__device__ __forceinline__ float r_mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double r_mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
 __device__ __forceinline__ float r_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double r_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float r_exp(float x) { return expf(x); }

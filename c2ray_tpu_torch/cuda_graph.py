@@ -26,6 +26,7 @@ _SIGNATURES = {
     "c2r_while_graph": [_vp, _vp, ctypes.POINTER(_vp), ctypes.POINTER(_vp)],
     "c2r_while_graph_launch": [_vp, _vp],
     "c2r_graph_nodes": [_vp, ctypes.POINTER(ctypes.c_ulonglong)],
+    "c2r_graph_kernel_nodes": [_vp, ctypes.POINTER(ctypes.c_ulonglong)],
     "c2r_while_graph_destroy": [_vp, _vp],
 }
 
@@ -43,6 +44,15 @@ def _check(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} failed: "
                            f"{lib.c2r_error_string(rc).decode()} ({rc})")
+
+
+def kernel_nodes(graph: int) -> int:
+    """The kernel nodes of a cudaGraph_t (CUDAGraph.raw_cuda_graph() of a
+    graph kept with keep_graph=True)."""
+    lib, fn = _fn("c2r_graph_kernel_nodes")
+    count = ctypes.c_ulonglong(0)
+    _check(lib, fn(graph, ctypes.byref(count)), "counting kernel nodes")
+    return int(count.value)
 
 
 class WhileGraph:

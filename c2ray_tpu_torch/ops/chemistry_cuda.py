@@ -2,24 +2,25 @@
 
 The counterpart of what XLA fuses out of c2ray_tpu/ops/chemistry.py::
 global_chemistry and, non-isothermally, c2ray_tpu/ops/thermal.py::
-_thermal_core: the masked while loops over the grid become one thread
-per cell that iterates its own doric passes and thermal substeps in
-registers, so the pass makes no host round trip and a CUDA graph can
-capture it.  ops/chemistry.global_chemistry calls global_chemistry_cuda
-for CUDA tensors; its plain version is
-ops/chemistry.global_chemistry_reference.
+_thermal_core: the masked while loops over the grid become one
+persistent launch in which each thread runs its cells' doric passes and
+thermal substeps in registers, one cell after another, so the pass makes
+no host round trip and a CUDA graph can capture it.
+ops/chemistry.global_chemistry calls global_chemistry_cuda for CUDA
+tensors; its plain version is ops/chemistry.global_chemistry_reference.
 
 The kernel follows the plain version's torch ops cell by cell, so its
 outputs are bitwise those of the plain version on the card.  The
 isothermal rates are computed here once with the plain version's own
 ops and passed in.  The kernel also takes the solver tail's photon audit
-(its two ops/photonstats.grid_counts calls) in its output pass: the
+(its two ops/photonstats.grid_counts calls) as each cell finishes: the
 result's `audit`, whose plain version is audit_reference, and whose
 arithmetic per cell audit_terms writes out in torch.  Builds: float32
 and float64 (the tensors' dtype), each with an isothermal and a heat
-instance and their compressed-storage forms; LAUNCHES
-(launches.LaunchCounts) counts launches by build key: "chemistry",
-"chemistry_heat", "chemistry_f64", "chemistry_f64_heat".
+instance, their compressed-storage forms and forms with and without the
+audit; LAUNCHES (launches.LaunchCounts) counts the kernel launches, one
+per call, by build key: "chemistry", "chemistry_heat", "chemistry_f64",
+"chemistry_f64_heat".
 """
 
 from __future__ import annotations
@@ -58,9 +59,8 @@ _SIGNATURES = {
                    _vp, _vp, _vp, _vp, ctypes.POINTER(ctypes.c_double), _vp,
                    _vp, _ll,
                    _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                   _vp]),
-    # the partials' length per quantity: the cell launch's blocks and the
-    # reduce's first-stage chunks
+                   ctypes.POINTER(ctypes.c_int), _vp]),
+    # the partials' length per quantity: the most blocks of a launch
     "chemistry_blocks": ("chemistry", "c2r_chemistry_blocks", [_ll]),
 }
 
@@ -165,28 +165,27 @@ def global_chemistry_cuda(cfg: RunConfig, dt, ndens: torch.Tensor,
                           photon_loss_rate: Union[float,
                                                   torch.Tensor] = 0.0,
                           max_subcycles: int = 10000) -> ChemistryResult:
-    """global_chemistry on CUDA tensors, one kernel launch and its
-    reduce (the arguments are global_chemistry's).  dt and
-    cosmo_cool_coeff are Python numbers or one-element float64 tensors on
-    the card, which the kernel reads at launch (sweep_cuda.step_scalar);
+    """global_chemistry on CUDA tensors, one kernel launch (the arguments
+    are global_chemistry's).  dt and cosmo_cool_coeff are Python numbers
+    or one-element float64 tensors on the card, which the kernel reads at
+    launch (sweep_cuda.step_scalar);
     clumping and photon_loss_rate a number, a 0-d tensor or a grid of
     ndens' shape.  The result's counters hold the kernel's COUNTERS, its
     audit the photon audit's AUDIT sums."""
-    res = _chemistry(cfg, dt, ndens, xh1_old, xh1_intermed, xh1_av, phih,
-                     phiheat, temper_current, temper_av, clumping, cool,
-                     cosmo_cool_coeff, photon_loss_rate, max_subcycles)
-    LAUNCHES.add(build_for(ndens.dtype, not cfg.isothermal).key, 1,
-                 ndens.device)
-    return res
+    return _chemistry(cfg, dt, ndens, xh1_old, xh1_intermed, xh1_av, phih,
+                      phiheat, temper_current, temper_av, clumping, cool,
+                      cosmo_cool_coeff, photon_loss_rate, max_subcycles,
+                      count=True)
 
 
 def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
                phih, phiheat, temper_current, temper_av, clumping, cool,
                cosmo_cool_coeff, photon_loss_rate, max_subcycles,
-               defines=(), audit=True) -> ChemistryResult:
+               defines=(), audit=True, count=False) -> ChemistryResult:
     """Launch the kernel (the build of ndens' dtype, with the timing
     `defines` added, none by default), with the photon audit unless
-    audit is False (its result's audit then None)."""
+    audit is False (its result's audit then None); count: add the kernel
+    launches the C entry reports to LAUNCHES."""
     heat = not cfg.isothermal
     dtype, dev = ndens.dtype, ndens.device
     dt, dt_p = step_scalar("dt", dt, dev)
@@ -239,7 +238,8 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
     out_av = torch.empty_like(ndens)
     out_tint = torch.empty_like(ndens) if heat else None
     out_tav = torch.empty_like(ndens) if heat else None
-    counters = torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+    # the kernel writes every counter and audit sum: no zero fill
+    counters = torch.empty(len(COUNTERS), dtype=torch.int64, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -248,14 +248,18 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
     lib, fn = _entry("chemistry", _SIGNATURES, defines)
     blocks = _entry("chemistry_blocks", _SIGNATURES, defines)[1]
     blocks.restype = _ll
-    nblocks = max(1, blocks(ndens.numel()))
+    nblocks = blocks(ndens.numel())
+    if nblocks < 1:
+        raise RuntimeError("chemistry kernel: no CUDA device to size its "
+                           "scratch")
     partial = torch.empty(len(COUNTERS) * nblocks, dtype=torch.int64,
                           device=dev)
-    audit_out = (torch.zeros(len(AUDIT), dtype=dtype, device=dev) if audit
+    audit_out = (torch.empty(len(AUDIT), dtype=dtype, device=dev) if audit
                  else None)
     apartial = (torch.empty(len(AUDIT) * nblocks, dtype=torch.float64,
                             device=dev) if audit else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = ctypes.c_int(0)
     rc = fn(ptr(ndens), ptr(xh1_old), ptr(xh1_intermed), ptr(xh1_av),
             ptr(phih), ptr(loss), loss_stride, ptr(brech), brech_stride,
             ptr(acol), ptr(clump), clump_stride, ptr(phiheat),
@@ -264,8 +268,14 @@ def _chemistry(cfg: RunConfig, dt, ndens, xh1_old, xh1_intermed, xh1_av,
             int(max_subcycles), int(heat), int(cfg.compressed_xfrac),
             ptr(out_int), ptr(out_av), ptr(out_tint), ptr(out_tav),
             ptr(counters), ptr(partial), ptr(apartial), ptr(audit_out),
-            stream)
+            ctypes.byref(launches), stream)
     _check_rc(lib, rc, "chemistry")
+    if launches.value == 0:         # an empty grid: nothing launched
+        counters.zero_()
+        if audit:
+            audit_out.zero_()
+    if count:
+        LAUNCHES.add(build.key, launches.value, dev)
     return ChemistryResult(out_int, out_av, out_tint, out_tav,
                            counters[0].to(torch.int32),
                            counters[1].to(torch.int32), counters, audit_out)
