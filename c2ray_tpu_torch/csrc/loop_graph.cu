@@ -4,7 +4,7 @@
 //
 // The loop body (one convergence iteration: sweep, chemistry tail,
 // carry update and the loop's condition, written to a one-byte flag
-// `go` by the body's last op) is captured by PyTorch into its own
+// `go` by the body) is captured by PyTorch into its own
 // graph.  This library builds the graph that runs it:
 //
 //     set(h, go) -> WHILE h { body (a child-graph node); set(h, go) }
@@ -17,10 +17,60 @@
 // through the CUDA runtime; the body graph's memory stays in PyTorch's
 // private pool of the capture, which the caller keeps alive with the
 // graph.
+//
+// The phase clock of the loop (ops/launches.PhaseClock) is here too: a
+// one-thread stamp kernel that the body launches after each phase of an
+// iteration, captured with it, and an anchor kernel launched on the
+// stream before and after the graph.  Both read the card's %globaltimer
+// (ns).  The clock's buffer is int64 rows of `width` columns, one row per
+// iteration indexed by the carry's iteration counter, then one row of the
+// clock's own: [previous stamp, first anchor, last anchor, ...].  A row is
+// [phase ns ..., counts ..., first stamp, last stamp].
 
 #include <cuda_runtime.h>
 
 namespace {
+
+__device__ __forceinline__ long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+// Charge the ns since the previous stamp to column `phase` of row *it,
+// set the row's first (the previous stamp, at its first charge) and last
+// stamp; with counts, add counts[0] and counts[1] to columns count_col
+// and count_col + 1.  Does nothing unless *on.
+__global__ void phase_stamp(const int* on, long long* rows, const int* it,
+                            int nrows, int width, int phase,
+                            const long long* counts, int count_col) {
+  if (*on == 0) return;
+  const long long now = globaltimer();
+  long long* clock = rows + (long long)nrows * width;
+  const int i = *it;
+  if (i >= 0 && i < nrows) {
+    long long* row = rows + (long long)i * width;
+    const long long prev = clock[0];
+    row[phase] += now - prev;
+    if (row[width - 2] == 0) row[width - 2] = prev;
+    row[width - 1] = now;
+    if (counts != nullptr) {
+      row[count_col] += counts[0];
+      row[count_col + 1] += counts[1];
+    }
+  }
+  clock[0] = now;
+}
+
+// Start the clock (the previous stamp) and keep the time in the clock
+// row's column `slot` (0: the previous stamp alone, a restart).
+__global__ void clock_anchor(long long* rows, int nrows, int width,
+                             int slot) {
+  const long long now = globaltimer();
+  long long* clock = rows + (long long)nrows * width;
+  clock[0] = now;
+  clock[slot] = now;
+}
 
 __global__ void set_condition(cudaGraphConditionalHandle h,
                               const unsigned char* go) {
@@ -123,6 +173,23 @@ int c2r_while_graph_destroy(void* graph, void* exec) {
     if (err == cudaSuccess) err = e2;
   }
   return (int)err;
+}
+
+// One stamp of the phase clock on `stream` (phase_stamp; counts may be
+// null).
+int c2r_phase_stamp(const int* on, long long* rows, const int* it, int nrows,
+                    int width, int phase, const long long* counts,
+                    int count_col, void* stream) {
+  phase_stamp<<<1, 1, 0, (cudaStream_t)stream>>>(on, rows, it, nrows, width,
+                                                 phase, counts, count_col);
+  return (int)cudaGetLastError();
+}
+
+// One anchor of the phase clock on `stream` (clock_anchor).
+int c2r_clock_anchor(long long* rows, int nrows, int width, int slot,
+                     void* stream) {
+  clock_anchor<<<1, 1, 0, (cudaStream_t)stream>>>(rows, nrows, width, slot);
+  return (int)cudaGetLastError();
 }
 
 const char* c2r_error_string(int code) {

@@ -4,7 +4,7 @@ while a flag holds (csrc/loop_graph.cu).
 WhileGraph captures a body once on a side stream into a graph it keeps
 (torch.cuda.CUDAGraph(keep_graph=True)), then has the loop library wrap
 it in a graph with one conditional WHILE node: a launch runs the body
-again and again on the card until the body's last op writes 0 to the
+again and again on the card until the body has written 0 to the
 flag.  This is the counterpart of the JAX package's lax.while_loop
 program; PyTorch binds no conditional node, so the outer graph is built
 through the CUDA runtime.  The body's memory is the capture's own
@@ -28,6 +28,10 @@ _SIGNATURES = {
     "c2r_graph_nodes": [_vp, ctypes.POINTER(ctypes.c_ulonglong)],
     "c2r_graph_kernel_nodes": [_vp, ctypes.POINTER(ctypes.c_ulonglong)],
     "c2r_while_graph_destroy": [_vp, _vp],
+    # the loop's phase clock (ops/launches.PhaseClock)
+    "c2r_phase_stamp": [_vp, _vp, _vp, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _vp, ctypes.c_int, _vp],
+    "c2r_clock_anchor": [_vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp],
 }
 
 
@@ -58,7 +62,7 @@ def kernel_nodes(graph: int) -> int:
 class WhileGraph:
     """body() captured once; run() launches `while go: body()` on the
     current stream.  go: a one-byte (bool) CUDA tensor that body()
-    rewrites as its last op, and that the caller sets before run().
+    rewrites, and that the caller sets before run().
     Attributes: nodes (the body graph's node count), capture_s."""
 
     def __init__(self, body, go: torch.Tensor):

@@ -34,6 +34,7 @@ import torch
 
 from .. import constants as const
 from ..config import RunConfig
+from .launches import mark
 from .tables import RadTables, photoion_rates, photoion_rates_lls_fused
 
 SQRT2 = float(np.sqrt(2.0))
@@ -651,7 +652,9 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     ~1 GiB staging bound as the JAX twin, and by MAX_BATCH); each batch
     runs the column march (sweep_cuda.compute_columns_grid) and the fused
     rate deposition (sweep_cuda.consume_rates) - the hand-written kernels
-    on a CUDA device, their plain versions on the CPU.
+    on a CUDA device, their plain versions on the CPU.  Each batch's
+    march and rate pass, and the work before them, end in phase marks of
+    the loop's clock (launches.mark; nothing outside a traced loop).
 
     srcpos: (S, 3) 0-based cell positions; nflux: (S,) in S_star units;
     nflux_xray: (S,) X-ray fluxes in pl_s_star units, or None; lls_grid:
@@ -707,7 +710,9 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
         pos_b = srcpos[i:i + b]
         nf_b = nflux[i:i + b]
         nfx_b = nfx[i:i + b] if nfx is not None else None
+        mark("sweep_glue")
         cdo_b = compute_columns_grid(cfg, ndhi, pos_b, sc, d_sweep, lls=lls)
+        mark("march")
         if slab is not None:
             ph, he, lo, ll = _slab_rate_pass(cfg, tables, cdo_b, ndhi, lls,
                                              pos_b, nf_b, sc, d_sweep, slab,
@@ -716,6 +721,7 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
             ph, he, lo, ll = consume_rates(
                 cfg, tables, cdo_b, ndhi, pos_b, nf_b, sc, d_sweep,
                 lls_grid=lls, nfx_b=nfx_b)
+        mark("consume")
         del cdo_b     # free this batch's cube before the next is made
         phih = phih + ph
         if he is not None:

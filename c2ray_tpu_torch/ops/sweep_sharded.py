@@ -22,8 +22,8 @@ the x-plane work of rows it does not own, where the JAX program computes
 it and masks it out; the owned cells get the same arithmetic.
 
 The march is plain torch on every device, as the JAX package runs it in
-XLA (there is no Pallas kernel of it).  The rank grid counts and times
-its ring exchanges (RankGrid.stats).
+XLA (there is no Pallas kernel of it).  The rank grid counts its ring
+exchanges and the bytes they move (RankGrid.stats).
 """
 
 from __future__ import annotations

@@ -31,7 +31,6 @@ from __future__ import annotations
 import math
 import os
 import socket
-import time
 from typing import Any, Optional
 
 import torch
@@ -212,8 +211,7 @@ class RankGrid:
         # gloo moves CPU tensors: stage tensors on the card through the host
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self._pinned = {}       # role -> pinned host bytes
-        self.stats = dict(collectives=0, p2p=0, bytes=0, staged_bytes=0,
-                          seconds=0.0)
+        self.stats = dict(collectives=0, p2p=0, bytes=0, staged_bytes=0)
 
     def size(self, axis: str) -> int:
         return {"src": self.n_src, "dom": self.n_dom,
@@ -224,7 +222,7 @@ class RankGrid:
 
     def reset_stats(self) -> None:
         for key in self.stats:
-            self.stats[key] = 0.0 if key == "seconds" else 0
+            self.stats[key] = 0
 
     # ------------------------------------------------------------------
     def _buffer(self, role: str, shape, dtype) -> torch.Tensor:
@@ -265,30 +263,24 @@ class RankGrid:
         k = self.size(axis)
         if k == 1:
             return t
-        t0 = time.perf_counter()
         src = self._host(t.contiguous())
         out = self._empty(src, (k * src.shape[0],) + tuple(src.shape[1:]),
                           "gather")
         dist.all_gather_into_tensor(out, src, group=self.groups[axis])
         self.stats["collectives"] += 1
         self.stats["bytes"] += out.numel() * out.element_size()
-        out = self._back(out)
-        self.stats["seconds"] += time.perf_counter() - t0
-        return out
+        return self._back(out)
 
     def _reduce(self, t: torch.Tensor, axis: str, op) -> torch.Tensor:
         """all_reduce(op) of a copy of t over the axis (t is untouched)."""
         if self.size(axis) == 1:
             return t
-        t0 = time.perf_counter()
         buf = (self._host(t.contiguous(), "reduce") if self.staged
                else t.clone(memory_format=torch.contiguous_format))
         dist.all_reduce(buf, op=op, group=self.groups[axis])
         self.stats["collectives"] += 1
         self.stats["bytes"] += buf.numel() * buf.element_size()
-        out = self._back(buf)
-        self.stats["seconds"] += time.perf_counter() - t0
-        return out
+        return self._back(buf)
 
     def sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The axis's sum of t, the same bits on every rank."""
@@ -304,7 +296,6 @@ class RankGrid:
         next rank's send_dn).  One rank on the ring: itself."""
         if self.n_dom == 1:
             return send_up, send_dn
-        t0 = time.perf_counter()
         base = self.src * self.n_dom
         nxt = base + (self.dom + 1) % self.n_dom
         prv = base + (self.dom - 1) % self.n_dom
@@ -321,9 +312,7 @@ class RankGrid:
         self.stats["p2p"] += 1
         self.stats["bytes"] += (up.numel() * up.element_size()
                                 + dn.numel() * dn.element_size())
-        out = self._back(from_prv), self._back(from_nxt)
-        self.stats["seconds"] += time.perf_counter() - t0
-        return out
+        return self._back(from_prv), self._back(from_nxt)
 
 
 def free_port() -> int:

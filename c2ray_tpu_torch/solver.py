@@ -49,6 +49,10 @@ grids' slab (rate_sharding).  Under the halo layout the state is the
 rank's slab, and every sum over the grid (the convergence sum, the
 photon audit's counts, the mean density of the initial radii) is summed
 over the ranks.
+
+Under an active torch.profiler session a call traces itself
+(ops/launches.py): in either loop, a phase clock whose marks time each
+iteration's sweep, chemistry and glue.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import numpy as np
 import torch
 
 from .config import RunConfig, resolve_device
+from .ops import launches
 from .ops.chemistry import global_chemistry
 from .ops.photonstats import GridCounts, PhotonStatistics, grid_counts
 from .ops.sweep import (SweepScalars, check_window_positions,
@@ -406,6 +411,10 @@ class Evolve3D:
         chem = self._chem(cfg, dt, ndens, xh1, xh_int, xh_av, phih,
                           phiheat, t_cur, t_av, clump, self.cool,
                           cosmo_cool_coeff, photon_loss_rate=loss_rate)
+        # the kernel's passes and substeps (chemistry_cuda.COUNTERS[2:4]);
+        # the plain chemistry has none
+        launches.mark("chemistry", chem.counters[2:4]
+                      if chem.counters is not None else None)
         sum1 = torch.sum(self._dense_x1(chem.xh1_intermed))
         dl = sum1.dtype
         sums = [sum1]
@@ -492,7 +501,8 @@ class Evolve3D:
         c2ray_tpu/solver.py:519-546): sweep, tail, the history row, the
         previous iterates (for the dump), then the condition into c.go.
         No host read.  A static carry (the captured form) is updated in
-        place, an eager one by rebinding."""
+        place, an eager one by rebinding.  The phases end in marks of the
+        carry's clock, in the row of c.it, which is advanced last."""
         have_t = not self.cfg.isothermal
 
         def put(name, value):
@@ -501,32 +511,36 @@ class Evolve3D:
             else:
                 setattr(c, name, value)
 
-        put("prev1", c.sum1)
-        put("prev0", float(self.cfg.n_cells) - c.sum1)
-        phih, phiheat, ploss, llsl, psrc = self._rt_call(a, c)
-        xh_int, xh_av, t_int, t_av, packed = self._tail(
-            a.dt, a.ndens, a.xh1, c.xh_int, c.xh_av, phih, a.clump, ploss,
-            llsl, psrc, a.with_stats, phiheat, a.t_cur,
-            c.t_av if have_t else None, a.coeff, a.sc)
-        put("xh_int_p", c.xh_int)
-        put("xh_av_p", c.xh_av)
-        put("xh_int", xh_int)
-        put("xh_av", xh_av)
-        if have_t:
-            put("t_int_p", c.t_int)
-            put("t_av_p", c.t_av)
-            put("t_int", t_int)
-            put("t_av", t_av)
-            put("phiheat", phiheat)
-        put("phih", phih)
-        put("psrc", packed[a.k:])
-        c.hist.index_copy_(0, c.it.view(1).long(),
-                           packed[:a.k].view(1, a.k))
-        put("sum1", packed[1])
-        put("conv", packed[0])
-        put("niter", c.niter + 1)
-        put("it", c.it + 1)
-        put("go", self._loop_cond(c, a.crit))
+        with c.clock.active():
+            c.clock.row = c.it
+            put("prev1", c.sum1)
+            put("prev0", float(self.cfg.n_cells) - c.sum1)
+            phih, phiheat, ploss, llsl, psrc = self._rt_call(a, c)
+            launches.mark("sweep_glue")
+            xh_int, xh_av, t_int, t_av, packed = self._tail(
+                a.dt, a.ndens, a.xh1, c.xh_int, c.xh_av, phih, a.clump,
+                ploss, llsl, psrc, a.with_stats, phiheat, a.t_cur,
+                c.t_av if have_t else None, a.coeff, a.sc)
+            put("xh_int_p", c.xh_int)
+            put("xh_av_p", c.xh_av)
+            put("xh_int", xh_int)
+            put("xh_av", xh_av)
+            if have_t:
+                put("t_int_p", c.t_int)
+                put("t_av_p", c.t_av)
+                put("t_int", t_int)
+                put("t_av", t_av)
+                put("phiheat", phiheat)
+            put("phih", phih)
+            put("psrc", packed[a.k:])
+            c.hist.index_copy_(0, c.it.view(1).long(),
+                               packed[:a.k].view(1, a.k))
+            put("sum1", packed[1])
+            put("conv", packed[0])
+            put("niter", c.niter + 1)
+            put("go", self._loop_cond(c, a.crit))
+            launches.mark("carry")
+            put("it", c.it + 1)
 
     def _loop_start(self, c, xh_int, xh_av, t_int, t_av, sum1, conv_flag0,
                     niter0) -> None:
@@ -559,8 +573,9 @@ class Evolve3D:
 
     def _loop_carry(self, a, static: bool, template) -> SimpleNamespace:
         """A carry: history, the per-source losses' and rate grids'
-        buffers, and (static) every other entry allocated once, for a
-        captured body to update in place."""
+        buffers, the phase clock (a row per history row), and (static)
+        every other entry allocated once, for a captured body to update
+        in place."""
         cfg = self.cfg
         dl = cfg.torch_dtype
         dev = self.device
@@ -568,7 +583,8 @@ class Evolve3D:
         c = SimpleNamespace(
             static=static, crit=a.crit,
             hist=torch.zeros((max_rows, a.k), dtype=dl, device=dev),
-            psrc=torch.zeros(a.srcpos.shape[0], dtype=dl, device=dev))
+            psrc=torch.zeros(a.srcpos.shape[0], dtype=dl, device=dev),
+            clock=launches.PhaseClock(max_rows, dev))
         n = cfg.mesh[0]
         c.phih = torch.zeros((n, n, n), dtype=dl, device=dev)
         c.phiheat = torch.zeros((n, n, n) if not cfg.isothermal else (),
@@ -636,11 +652,14 @@ class Evolve3D:
         st, c = entry.a, entry.c
         self._loop_start(c, xh_int, xh_av, t_int, t_av, sum1, conv_flag0,
                          niter0)
+        # a traced step anchors the clock on the stream before the loop
+        c.clock.begin()
         info = dict(form="graph", host_reads=0, graph_launches=0,
                     capture_s=0.0, nodes=None, warmup=0)
         if entry.graph is None:
             info["host_reads"] += 1
             if not bool(c.go):
+                c.clock.end()
                 return c, info
             self._loop_body(st, c)
             info["warmup"] = 1
@@ -648,6 +667,7 @@ class Evolve3D:
             info["capture_s"] = entry.graph.capture_s
         info["nodes"] = entry.graph.nodes
         entry.graph.run()
+        c.clock.end()
         info["graph_launches"] = 1
         return c, info
 
@@ -681,12 +701,15 @@ class Evolve3D:
             c = self._loop_carry(a, False, xh1)
             self._loop_start(c, xh_int, xh_av, t_int, t_av, sum1_dev,
                              conv_flag0, niter0)
+            c.clock.begin()
             reads = 0
             while True:
                 reads += 1
                 if not bool(c.go):        # one host read per iteration
                     break
+                c.clock.restart()
                 self._loop_body(a, c)
+            c.clock.end()
             info = dict(form="eager", host_reads=reads, graph_launches=0,
                         capture_s=0.0, nodes=None, warmup=0)
         # the one device-to-host copy of the loop's results
@@ -705,6 +728,8 @@ class Evolve3D:
         psrc = got[6 + max_rows * k:].astype(np.float64)
         info["iterations"] = it_count
         self.last_loop = info
+        # a traced step's rows: one more copy
+        c.clock.collect(it_count, info["form"])
 
         # the host's replay: per-iteration photon reports and Timings
         # stamps, the streams the host loop writes
@@ -791,7 +816,11 @@ class Evolve3D:
         whose pending chemistry pass runs first, with no re-sweep
         (start_from_dump, evolve.F90:154-158, 328-426); clocks: a
         utils.clocks.Clocks, stamped after every iteration
-        (evolve.F90:272-273)."""
+        (evolve.F90:272-273).
+
+        Under an active torch.profiler session the call is traced
+        (ops/launches.py): the loop's phase clock times each iteration,
+        and its rows go to launches' store."""
         cfg = self.cfg
         dev = self.device
         dtype = cfg.torch_dtype
@@ -919,6 +948,9 @@ class Evolve3D:
                 with_stats, last_stat4, dumper, clocks, photon_loss,
                 lls_loss, phih, phiheat)
 
+        clock = launches.PhaseClock(cfg.max_global_iterations + 2, dev)
+        clock.begin()
+        it = 0
         while True:
             # convergence tests (evolve.F90:179-233)
             if sum1 is None:
@@ -946,6 +978,7 @@ class Evolve3D:
 
             prev_sum1, prev_sum0 = sum1, sum0
             niter += 1
+            clock.row = it
 
             if use_adaptive:
                 if radius_assign is None:
@@ -957,19 +990,28 @@ class Evolve3D:
                 rungs.append(np.bincount(
                     radius_assign,
                     minlength=len(self._radius_ladder())).tolist())
-                phih, phiheat, ploss_d, llsl_d, pending = \
-                    self._adaptive_sweep(ndens, xh_av, srcpos_np, nflux_np,
-                                         sc, radius_assign, lls_t, nfx_np)
-                psrc_d = torch.cat([ps for _, ps in pending])
-            else:
-                phih, phiheat, ploss_d, llsl_d, psrc_d = self._rt(
-                    cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t, sc,
-                    lls_grid=lls_t, nflux_xray=nfx_t)
             # the pre-chemistry iterates, for the iteration dump
             pre = (xh_av, xh_int, t_int, t_av)
-            xh_int, xh_av, t_int_d, t_av_d, packed = self._tail(
-                dt, ndens, state.xh1, xh_int, xh_av, phih, clump, ploss_d,
-                llsl_d, psrc_d, with_stats, phiheat, t_cur, t_av, coeff, sc)
+            clock.restart()
+            with clock.active():
+                if use_adaptive:
+                    phih, phiheat, ploss_d, llsl_d, pending = \
+                        self._adaptive_sweep(ndens, xh_av, srcpos_np,
+                                             nflux_np, sc, radius_assign,
+                                             lls_t, nfx_np)
+                    psrc_d = torch.cat([ps for _, ps in pending])
+                else:
+                    phih, phiheat, ploss_d, llsl_d, psrc_d = self._rt(
+                        cfg, self.tables, ndens, xh_av, srcpos_t, nflux_t,
+                        sc, lls_grid=lls_t, nflux_xray=nfx_t)
+                launches.mark("sweep_glue")
+                xh_int, xh_av, t_int_d, t_av_d, packed = self._tail(
+                    dt, ndens, state.xh1, xh_int, xh_av, phih, clump,
+                    ploss_d, llsl_d, psrc_d, with_stats, phiheat, t_cur,
+                    t_av, coeff, sc)
+                # before the blocking copy: the host's work from here to
+                # the next iteration's restart is in no phase
+                launches.mark("carry")
             if not cfg.isothermal:
                 t_int, t_av = t_int_d, t_av_d
 
@@ -1008,6 +1050,9 @@ class Evolve3D:
                                            total_flux)
             if clocks is not None:
                 clocks.stamp(f"Time after iteration {niter}")
+            it += 1
+        clock.end()
+        clock.collect(it, "host")
 
         # end-of-step statistics (evolve.F90:277-279)
         if stats is not None:
