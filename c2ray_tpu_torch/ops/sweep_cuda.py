@@ -133,8 +133,12 @@ _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # has the same C signature (scalars as doubles, arrays as pointers)
 _SIGNATURES = {
     "march": ("march", "c2r_march",
-              [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _d, _d, _vp, _vp, _i,
-               _vp, _vp, _vp, _vp, _vp]),
+              [_vp, _vp, _vp, _i, _i, _i, _d, _d, _vp, _vp, _i, _vp, _vp,
+               _vp, _vp, _vp]),
+    # grid mode's edge buffer per source at mesh n, and its launches per
+    # call to nshell shells: the kernel's own schedule
+    "march_grid_edge": ("march", "c2r_march_grid_edge", [_i]),
+    "march_grid_launches": ("march", "c2r_march_grid_launches", [_i, _i]),
     "window_march": ("march", "c2r_march_windows",
                      [_vp, _vp, _i, _i, _i, _d, _d, _i, _vp, _vp, _vp,
                       _vp]),
@@ -270,10 +274,10 @@ def compute_columns_grid(cfg: RunConfig, ndhi: torch.Tensor,
 
 
 def _grid_march(cfg: RunConfig, ndhi: torch.Tensor, srcpos_b: torch.Tensor,
-                sc: SweepScalars, max_shell: int, defines=(),
+                sc: SweepScalars, max_shell: int,
                 lls: Optional[torch.Tensor] = None):
-    """Launch K1 (the build of ndhi's dtype, with the timing `defines`
-    added, none by default) -> (out, kernel launches made)."""
+    """Launch K1 (the build of ndhi's dtype) -> (out, kernel launches
+    made)."""
     n = ndhi.shape[0]
     b = srcpos_b.shape[0]
     build = build_for("march", ndhi.dtype, cfg, lls is not None)
@@ -292,27 +296,32 @@ def _grid_march(cfg: RunConfig, ndhi: torch.Tensor, srcpos_b: torch.Tensor,
                          f"1..{MAX_BATCH}")
     _slice_options(cfg)
     nshell = _shells(max_shell, n)
-    lib, fn = _entry("march", defines=build.defines + tuple(defines))
+    lib, fn = _entry("march", defines=build.defines)
+    edge_len = _entry("march_grid_edge", defines=build.defines)[1](n)
     out = _columns_out((b, n, n, n), nshell, ndhi)
-    # zero-filled: a shell reads corners just outside the previous shell's
-    # live square (with zero weight), which must hold finite values
-    planes = torch.zeros((2, b, 6, n, n), dtype=dtype, device=ndhi.device)
-    # the z faces' cells, z-major, before their transpose into out
-    zst = torch.empty((b, n, n, n), dtype=dtype, device=ndhi.device)
-    ndhi_zt = ndhi.permute(2, 0, 1).contiguous()     # [z][x][y]
-    # the LLS cube's z-major copy, made as the density's
-    lls_zt = lls.permute(2, 0, 1).contiguous() if mode == 2 else None
+    # the two plane sets of the shell groups and the faces' boundary rings
+    # of the last shells (the kernel reads only what it wrote: no fill)
+    planes = torch.empty((2, b, 6, n, n), dtype=dtype, device=ndhi.device)
+    edge = torch.empty((b, edge_len), dtype=dtype, device=ndhi.device)
     stream = torch.cuda.current_stream(ndhi.device).cuda_stream
     launches = ctypes.c_int(0)
     dr, dr_p = step_scalar("sc.dr", sc.dr, ndhi.device)
     lcol, lcol_p = step_scalar("sc.lls_coldens", sc.lls_coldens, ndhi.device)
-    rc = fn(ndhi.data_ptr(), ndhi_zt.data_ptr(),
-            lls.data_ptr() if mode == 2 else None,
-            lls_zt.data_ptr() if mode == 2 else None, srcpos_b.data_ptr(),
-            b, n, nshell, dr, lcol, dr_p, lcol_p, mode, planes.data_ptr(),
-            zst.data_ptr(), out.data_ptr(), ctypes.byref(launches), stream)
+    rc = fn(ndhi.data_ptr(), lls.data_ptr() if mode == 2 else None,
+            srcpos_b.data_ptr(), b, n, nshell, dr, lcol, dr_p, lcol_p, mode,
+            planes.data_ptr(), edge.data_ptr(), out.data_ptr(),
+            ctypes.byref(launches), stream)
     _check_rc(lib, rc, "march")
     return out, launches.value
+
+
+def grid_march_launches(max_shell: int, n: int, dtype) -> int:
+    """K1's launches per compute_columns_grid call at mesh n to max_shell
+    shells, in the build of dtype: one, where the stages of its schedule
+    fit a launch's arguments (csrc/march.cu grid_launches)."""
+    build = _build_key("march", dtype)
+    return _entry("march_grid_launches",
+                  defines=build.defines)[1](n, _shells(max_shell, n))
 
 
 def _shells(max_shell: int, n: int) -> int:

@@ -16,6 +16,7 @@ from c2ray_tpu.config import test_problem_config as jax_config
 from c2ray_tpu.ops import sweep as js
 from c2ray_tpu.ops.tables import build_rad_tables as jax_tables
 
+from c2ray_tpu_torch import constants as const
 from c2ray_tpu_torch.convert import config_from_dict, tables_from_numpy
 from c2ray_tpu_torch.ops import sweep as ps
 from c2ray_tpu_torch.ops import sweep_cuda as pk
@@ -341,6 +342,259 @@ def test_march_live_square_suffices(monkeypatch, mode, n, use_lls,
     monkeypatch.setattr(ps, "_wavefront_plane_update", live_square_only)
     got = march(shells)
     assert len(seen) == min(shells, c) and seen[-1] > 0
+    assert torch.equal(got, want)
+
+
+def _grow(lo, hi, k, c):
+    """The plane interval [lo, hi] of shell d and what it reads through
+    its corners back to shell d-k: one cell more toward the source a
+    shell, until it holds both c-1 and c (csrc/march.cu's grow)."""
+    if lo >= c:
+        lo = max(lo - k, c - 1)
+    if hi < c:
+        hi = min(hi + k, c)
+    return lo, hi
+
+
+def _blocked_march(cfg, ndhi, pos, sc, max_shell, lls, shells, tile):
+    """A plain model of K1's shell-blocked schedule (csrc/march.cu grid
+    mode): groups of `shells` shells, the z faces' from their own offsets
+    and a group ahead; per step the z faces, then the y faces, then the x
+    faces, each face's live square in tiles `tile` wide; a tile marches
+    its group in its own two buffers from shell d0-1 read over the tile and
+    its one-sided halo (zero outside live(d0-1)), on a region that shrinks
+    toward the tile a shell; wedge fixups read from an edge buffer of the
+    higher faces' boundary rings, written by the tiles that own them.  The
+    planes and the edge buffer start as NaN, and the output too where
+    every cell is written, so a cell read before it is written shows."""
+    n = ndhi.shape[0]
+    c = n // 2
+    nb = pos.shape[0]
+    nshell = min(max_shell, c)
+    dt = ndhi.dtype
+    p = pos.to(torch.int64)
+    nan = float("nan")
+    planes = torch.full((2, nb, 6, n, n), nan, dtype=dt)
+    out = torch.full((nb, n, n, n), 0.0 if nshell < c else nan, dtype=dt)
+    edge = torch.full((nb, nshell + 1, 12, n), nan, dtype=dt)
+    cdo0 = ndhi[p[:, 0], p[:, 1], p[:, 2]] * (0.5 * sc.dr)
+    lls_on = cfg.use_lls and cfg.type_of_lls in (1, 2)
+    transverse = {2: (0, 1), 1: (0, 2), 0: (1, 2)}
+
+    def live(d):
+        return c - d, min(c + d, n - 1)
+
+    def clip(iv, d):
+        lo, hi = live(d)
+        return max(iv[0], lo), min(iv[1], hi)
+
+    def plane(cube, f, d, ra, rb):
+        ax, s = ps._FACES[f][:2]
+        ta, tb = transverse[ax]
+        idx = [None] * 3
+        idx[ax] = ((p[:, ax] + s * d) % n)[:, None, None]
+        idx[ta] = ((ra[None, :] + p[:, ta, None] - c) % n)[:, :, None]
+        idx[tb] = ((rb[None, :] + p[:, tb, None] - c) % n)[:, None, :]
+        return cube[tuple(idx)]
+
+    def values(prev, o, f, d, ra, rb):
+        # ops/sweep._wavefront_plane_update's arithmetic on the region
+        df = torch.tensor(float(d), dtype=dt)
+        inv_d = 1.0 / df
+        ia, ib = ra - o[0], rb - o[1]
+        am = torch.where(ra >= c, ra - 1, ra + 1) - o[0]
+        bm = torch.where(rb >= c, rb - 1, rb + 1) - o[1]
+        c4 = prev[:, ia][:, :, ib]
+        c3 = prev[:, am][:, :, ib]
+        c2 = prev[:, ia][:, :, bm]
+        c1 = prev[:, am][:, :, bm]
+        ta = (ra - c).to(dt)[:, None]
+        tb = (rb - c).to(dt)[None, :]
+        f_a = torch.clamp((df - torch.abs(ta)) * inv_d, 0.0, 1.0)
+        f_b = torch.clamp((df - torch.abs(tb)) * inv_d, 0.0, 1.0)
+        s1 = (1.0 - f_a) * (1.0 - f_b)
+        s2 = f_a * (1.0 - f_b)
+        s3 = (1.0 - f_a) * f_b
+        s4 = f_a * f_b
+
+        def wf(cd):
+            return 1.0 / torch.clamp(cd * const.SIGMA_HI_AT_ION_FREQ,
+                                     min=0.6)
+
+        w1, w2, w3, w4 = s1 * wf(c1), s2 * wf(c2), s3 * wf(c3), s4 * wf(c4)
+        cdensi = (c1 * w1 + c2 * w2 + c3 * w3 + c4 * w4) / (w1 + w2 + w3
+                                                              + w4)
+        if d == 1:
+            a1 = (np.abs(ra.numpy() - c) == 1)[:, None]
+            b1 = (np.abs(rb.numpy() - c) == 1)[None, :]
+            diag = np.where(a1 & b1, ps.SQRT3,
+                            np.where(a1 | b1, ps.SQRT2, 1.0))
+            cdensi = cdensi * torch.as_tensor(diag, dtype=dt)
+        path = torch.sqrt((ta * ta + tb * tb) * (inv_d * inv_d) + 1.0)
+        cin = cdensi
+        if lls_on:
+            lcol = (plane(lls, f, d, ra, rb) if lls is not None
+                    else sc.lls_coldens)
+            cin = cin + lcol * path
+        return cin + plane(ndhi, f, d, ra, rb) * (path * sc.dr)
+
+    def march_group(f, g, d0, d1):
+        # face f's group g, shells d0..d1: its tiles cover live(d1)
+        ns = d1 - d0 + 1
+        lo, hi = live(d1)
+        tiles = [(t, min(t + tile - 1, hi)) for t in range(lo, hi + 1, tile)]
+        for tile_a in tiles:
+            for tile_b in tiles:
+                box_a = _grow(*tile_a, ns, c)
+                box_b = _grow(*tile_b, ns, c)
+                o = (box_a[0], box_b[0])
+                ra = torch.arange(box_a[0], box_a[1] + 1)
+                rb = torch.arange(box_b[0], box_b[1] + 1)
+                if d0 == 1:
+                    buf = torch.zeros((nb, len(ra), len(rb)), dtype=dt)
+                    if box_a[0] <= c <= box_a[1] and \
+                            box_b[0] <= c <= box_b[1]:
+                        buf[:, c - o[0], c - o[1]] = cdo0
+                else:
+                    la, lb = live(d0 - 1)
+                    inside = (((ra >= la) & (ra <= lb))[:, None]
+                              & ((rb >= la) & (rb <= lb))[None, :])
+                    old = planes[(g + 1) % 2, :, f][:, ra][:, :, rb]
+                    buf = torch.where(inside, old,
+                                      torch.zeros((), dtype=dt))
+                bufs = [buf, buf.clone()]
+                for k in range(ns):
+                    d = d0 + k
+                    ga = clip(_grow(*tile_a, ns - 1 - k, c), d)
+                    gb = clip(_grow(*tile_b, ns - 1 - k, c), d)
+                    if ga[0] > ga[1] or gb[0] > gb[1]:
+                        continue
+                    qa = torch.arange(ga[0], ga[1] + 1)
+                    qb = torch.arange(gb[0], gb[1] + 1)
+                    v = values(bufs[k % 2], o, f, d, qa, qb)
+                    hp = c + d < n
+                    pp, m = (c + d) % n, c - d
+                    # fixups: rows from y, then columns from z
+                    if f >= 4:
+                        sx = f - 4
+                        for row, line in ((c + d, 8), (m, 10)):
+                            if (row != c + d or hp) and \
+                                    ga[0] <= row <= ga[1]:
+                                v[:, row - ga[0]] = \
+                                    edge[:, d, line + sx, gb[0]:gb[1] + 1]
+                    if f >= 2:
+                        s_ = f % 2
+                        lines = (0, 4) if f < 4 else (2, 6)
+                        for col, line in zip((c + d, m), lines):
+                            if (col != c + d or hp) and \
+                                    gb[0] <= col <= gb[1]:
+                                v[:, :, col - gb[0]] = \
+                                    edge[:, d, line + s_, ga[0]:ga[1] + 1]
+                    cur = bufs[(k + 1) % 2]
+                    cur[:, ga[0] - o[0]:ga[1] - o[0] + 1,
+                        gb[0] - o[1]:gb[1] - o[1] + 1] = v
+                    # the tile's own cells: rings, output
+                    ta_, tb_ = clip(tile_a, d), clip(tile_b, d)
+                    if ta_[0] > ta_[1] or tb_[0] > tb_[1]:
+                        continue
+                    sa = slice(ta_[0], ta_[1] + 1)
+                    sb = slice(tb_[0], tb_[1] + 1)
+                    vt = v[:, ta_[0] - ga[0]:ta_[1] - ga[0] + 1,
+                           tb_[0] - gb[0]:tb_[1] - gb[0] + 1]
+                    rings = []
+                    if f < 2:
+                        rings = [("col", pp, 4 * f), ("col", m, 4 * f + 1),
+                                 ("row", pp, 4 * f + 2),
+                                 ("row", m, 4 * f + 3)]
+                    elif f < 4:
+                        rings = [("row", pp, 8 + 2 * (f - 2)),
+                                 ("row", m, 9 + 2 * (f - 2))]
+                    for kind, at, line in rings:
+                        if kind == "col" and tb_[0] <= at <= tb_[1]:
+                            edge[:, d, line, sa] = vt[:, :, at - tb_[0]]
+                        if kind == "row" and ta_[0] <= at <= ta_[1]:
+                            edge[:, d, line, sb] = vt[:, at - ta_[0]]
+                    orow = c + d if f % 2 == 0 else c - d
+                    if orow < n:
+                        ka = (torch.arange(ta_[0], ta_[1] + 1) - c).abs()
+                        kb = (torch.arange(tb_[0], tb_[1] + 1) - c).abs()
+                        own = (torch.ones_like(vt[0], dtype=torch.bool)
+                               if f < 2 else (kb < d)[None, :].expand(
+                                   len(ka), -1).clone())
+                        if f >= 4:
+                            own &= (ka < d)[:, None]
+                        if f < 2:
+                            view = out[:, sa, sb, orow]
+                        elif f < 4:
+                            view = out[:, sa, orow, sb]
+                        else:
+                            view = out[:, orow, sa, sb]
+                        view[:] = torch.where(own, vt, view)
+                    if d == 1 and f == 0 and ta_[0] <= c <= ta_[1] \
+                            and tb_[0] <= c <= tb_[1]:
+                        out[:, c, c, c] = cdo0
+                # the tile's cells of shell d1 back to the planes
+                ta_, tb_ = clip(tile_a, d1), clip(tile_b, d1)
+                final = bufs[ns % 2]
+                planes[g % 2, :, f, ta_[0]:ta_[1] + 1,
+                       tb_[0]:tb_[1] + 1] = final[
+                    :, ta_[0] - o[0]:ta_[1] - o[0] + 1,
+                    tb_[0] - o[1]:tb_[1] - o[1] + 1]
+
+    # the groups (csrc/march.cu's grid_offset, grid_z_group): the y and x
+    # faces' group l holds shells l*S+1 .. l*S+S; a z face's groups start
+    # at its offset, and z stage l marches the group that holds the last
+    # shell of the y faces' group l; then y, then x
+    offsets = [(c + 1) % shells, (shells - c % shells) % shells, 0, 0, 0, 0]
+
+    def group(f, g):
+        o = offsets[f]
+        return max(1, g * shells - o + 1), min(g * shells - o + shells, nshell)
+
+    last = [-1, -1]
+    for l in range(-1, -(-nshell // shells)):
+        for f in (0, 1):
+            x = min((l + 1) * shells, nshell) - 1 + offsets[f]
+            g = -1 if x < 0 else x // shells
+            if g > last[f]:
+                assert g == last[f] + 1
+                march_group(f, g, *group(f, g))
+                last[f] = g
+        if l >= 0:
+            for f in range(2, 6):
+                march_group(f, l, *group(f, l))
+    return out
+
+
+_BLOCKED_CASES = [
+    pytest.param(n, lls, s, t, ms, id=f"{n}-{lls}-S{s}-T{t}-{ms}")
+    for n in (15, 16, 24) for lls in ("off", "scalar", "grid")
+    for s, t, ms in ((1, 5, None), (3, 4, None), (8, 5, None))
+] + [
+    pytest.param(16, lls, s, 4, 5, id=f"16-{lls}-S{s}-T4-5")
+    for lls in ("off", "grid") for s in (3, 8)
+]
+
+
+@pytest.mark.parametrize("n, lls, shells, tile, max_shell", _BLOCKED_CASES)
+def test_march_blocked_schedule_is_bitwise(n, lls, shells, tile, max_shell):
+    """K1's shell-blocked schedule (a plain model of csrc/march.cu's grid
+    mode: shell groups, tiles with a one-sided halo, the classes z, y, x
+    in turn, fixups from an edge buffer of the boundary rings) gives the
+    plain march's cube bitwise, for sources at corners and wrapping
+    edges, at odd and even n (the wrap at d = n/2), with a last partial
+    group, a capped radius, and tiles that span the centre and not."""
+    _, pcfg = _pair(n, "float32", use_lls=lls != "off",
+                    type_of_lls=2 if lls == "grid" else 1)
+    psc = ps.sweep_scalars(pcfg, 2.9e24 / (n / 16), 1e16)
+    ndhi = torch.from_numpy(_field(n, np.float32, seed=n + 3))
+    grid = (torch.from_numpy(_field(n, np.float32, seed=n + 4) * 1e20)
+            if lls == "grid" else None)
+    pos = torch.from_numpy(_corner_positions(n))
+    shells_run = n // 2 if max_shell is None else max_shell
+    want = ps.march_columns(pcfg, ndhi, pos, psc, shells_run, grid)
+    got = _blocked_march(pcfg, ndhi, pos, psc, shells_run, grid, shells,
+                         tile)
     assert torch.equal(got, want)
 
 
